@@ -1,11 +1,11 @@
 // Host-side native runtime: bit-packed column codec + scans.
 //
-// TPU-native framework counterpart of the reference's C++ kernel library
+// Counterpart of the reference's C++ kernel library
 // (reference: src/simd_scan_compression.cpp:53-104 compress_9bit_input,
 // src/simd_scan_decompression.cpp:6-55 decompress_unvectorized,
 // src/simd_scan.cpp:20-100 scan_unvectorized,
 // src/simd_scan_shared.cpp:9-23 shared_scan_128_sequential) — redesigned,
-// not translated: the TPU chips run the Pallas kernels; this library is the
+// not translated: the device runs the scan tiers; this library is the
 // host runtime used for fast data ingest (packing columns at memory speed
 // before device upload), host-side verification independent of JAX, and
 // out-of-band tooling.  Generalized to widths 1..31 with explicit shift
@@ -321,10 +321,10 @@ void sss_shared_scan(const uint8_t* packed, uint64_t n, int width,
 // linear layout out[g*k + j] = byte g of bitvector j (the reference's
 // shared_scan_128_linear byte order, simd_scan_shared_linear.cpp:57).
 //
-// Host-side relayout companion of the device MXU permutation kernel
-// (shared_simd_scan_tpu/ops/linear.py): callers exporting match bytes to
-// host memory fetch the native (k, W) layout and interleave here at
-// memcpy-class speed.  AVX2 fast path for k % 8 == 0: 32 groups per
+// Host-side companion of the device byte interleave
+// (shared_simd_scan_tpu/ops/scan.py interleave_linear): callers exporting
+// match bytes to host memory fetch the native (k, W) layout and interleave
+// here at memcpy-class speed.  AVX2 fast path for k % 8 == 0: 32 groups per
 // iteration via the 3-stage unpack byte transpose (8 streams -> 8-byte
 // units), one 8-byte store per (group, key-octet).
 //

@@ -1,25 +1,21 @@
 """End-to-end analytics walkthrough on a packed three-column table.
 
-Runs on any backend (pass --interpret on CPU; on TPU the Pallas kernels
-compile natively):
+Runs on any backend (the CPU runs the Triton driver's programs
+interpreted, a GPU compiles them):
 
-    PYTHONPATH=. python examples/analytics_demo.py --interpret
+    PYTHONPATH=. python examples/analytics_demo.py
 
 Covers the full user surface: host-codec ingest, device upload, shared
 scans, IN-list membership, fused multi-column WHERE clauses, the
 predicate-tree query layer, masked aggregates, histogram statistics, and
 bitvector persistence.
 """
-import sys
-
 import numpy as np
 
 import shared_simd_scan_tpu as sss
 from shared_simd_scan_tpu import bitvector, layout, query as q, stats
 from shared_simd_scan_tpu.ops import aggregate as agg_ops
 from shared_simd_scan_tpu.ops import scan as scan_ops
-
-INTERPRET = "--interpret" in sys.argv
 
 
 def main() -> int:
@@ -48,8 +44,7 @@ def main() -> int:
     # 1. shared scan: SELECT COUNT(*) GROUP BY price-bucket for 8 buckets
     keys = np.arange(8, dtype=np.uint32)
     bits, counts = scan_ops.shared_scan_device(
-        cols["price"], keys, interpret=INTERPRET
-    )
+        cols["price"], keys)
     print("shared scan counts (price in 0..7):",
           [int(c) for c in counts])
 
@@ -59,7 +54,7 @@ def main() -> int:
         q.Range(cols["region"], 2, 10),
         q.Or(q.In(cols["status"], [1, 4, 9]), q.Eq(cols["status"], 0)),
     )
-    match_bits, match_count = q.evaluate(expr, interpret=INTERPRET)
+    match_bits, match_count = q.evaluate(expr)
     expect = (
         (price >= 100) & (price < 400) & (region >= 2) & (region < 10)
         & (np.isin(status, [1, 4, 9]) | (status == 0))
@@ -70,8 +65,7 @@ def main() -> int:
 
     # 3. masked aggregate: SELECT SUM(revenue), COUNT(*) WHERE <expr>
     total, cnt = agg_ops.masked_aggregate_device(
-        cols["revenue"], match_bits, interpret=INTERPRET
-    )
+        cols["revenue"], match_bits)
     assert int(total) == int(revenue[expect].astype(np.uint64).sum())
     print(f"SUM(revenue) over matches: {int(total)} (count {int(cnt)})")
 
@@ -80,8 +74,8 @@ def main() -> int:
     print("first matching rows:", [int(i) for i in np.asarray(idx[:5])])
 
     # 5. column statistics from one histogram pass
-    qs = stats.quantiles(cols["price"], [0.5, 0.99], interpret=INTERPRET)
-    top, topc = stats.topk_values(cols["price"], 3, interpret=INTERPRET)
+    qs = stats.quantiles(cols["price"], [0.5, 0.99])
+    top, topc = stats.topk_values(cols["price"], 3)
     print(f"price p50={int(qs[0])} p99={int(qs[1])}; "
           f"top-3 values {list(map(int, top))}")
 
@@ -93,8 +87,7 @@ def main() -> int:
     print(f"timestamps FOR-encoded at {fts.width} bits "
           f"(raw needs 31+); base={fts.base}")
     _, cnt = forcol.evaluate(
-        q.Range(fts, 1_700_040_000, 1_700_050_000), interpret=INTERPRET
-    )
+        q.Range(fts, 1_700_040_000, 1_700_050_000))
     assert int(cnt) == int(((ts >= 1_700_040_000) & (ts < 1_700_050_000)).sum())
 
     skus = (rng.integers(0, 150, n).astype(np.uint64) * 982_451_653) % (1 << 40)
@@ -107,13 +100,11 @@ def main() -> int:
     from shared_simd_scan_tpu import zonemap
 
     sorted_ts = forcol.pack_for(np.sort(ts))
-    zmap = zonemap.build_zonemap(sorted_ts.dev, zone_b1=8,
-                                 interpret=INTERPRET)
+    zmap = zonemap.build_zonemap(sorted_ts.dev, zone_b1=8)
     lo_c = 1_700_040_000 - sorted_ts.base
     span = zonemap.prune_span(zmap, lo_c, lo_c + 600)
     _, zcnt = zonemap.pruned_range_scan(
-        sorted_ts.dev, zmap, lo_c, lo_c + 600, interpret=INTERPRET
-    )
+        sorted_ts.dev, zmap, lo_c, lo_c + 600)
     tss = np.sort(ts)
     assert int(zcnt) == int(
         ((tss >= 1_700_040_000) & (tss < 1_700_040_600)).sum()
@@ -129,4 +120,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    raise SystemExit(main())

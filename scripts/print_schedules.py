@@ -6,7 +6,7 @@ Port of the reference's mask-table prototypes
 (scripts/decompression_parameters.py, scripts/decompression_masks.py,
 scripts/decompression_masks8.py — SURVEY.md §2.3 S1): where the reference
 prints byte offsets + paddings + `_mm_setr_epi8` shuffle masks per value
-index, the TPU layout reduces all of it to (word index, shift, straddles)
+index, the device layout reduces all of it to (word index, shift, straddles)
 per value-in-block, because blocks are word-aligned by construction.
 
 Usage: python scripts/print_schedules.py [width ...]   (default: 1..31)

@@ -1,10 +1,10 @@
-"""shared_simd_scan_tpu — a TPU-native bit-packed columnar scan library.
+"""shared_simd_scan_tpu — a bit-packed columnar scan engine for the GPU.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the C++
+JAX/XLA/Pallas (Triton) implementation with the capabilities of the C++
 SSE/AVX reference RRr89/Shared_SIMD_Scan (see SURVEY.md): pack integers at
 bit widths 1..31, vectorized decompress, and shared scans evaluating many
 equality predicates in one bandwidth-bound pass, with data-parallel column
-sharding across a TPU mesh.
+sharding across a device mesh.
 """
 
 from shared_simd_scan_tpu.layout import (  # noqa: F401

@@ -25,12 +25,8 @@ import sys
 
 import jax
 
-# Remote TPU compiles cost minutes; cache executables across runs.
-jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-
-from shared_simd_scan_tpu.bench import harness  # noqa: E402
+from shared_simd_scan_tpu.bench import harness
+from shared_simd_scan_tpu.utils.cache import enable_compile_cache
 
 
 def parse_size(s: str) -> int:
@@ -79,6 +75,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
 
+    enable_compile_cache()
     dev = jax.devices()[0]
     print(f"# shared_simd_scan_tpu bench on {dev.device_kind} "
           f"({len(jax.devices())} device(s)); width={width}, "

@@ -1,54 +1,22 @@
-"""Multi-device scaling benchmark (BASELINE.md: bytes/s at 1 chip, 1 host,
-N >= 2 hosts — linear scaling expected).
+"""Multi-device weak-scaling benchmark of the sharded shared scan.
 
-Runs the sharded shared scan over meshes of 1, 2, 4, ... up to all
-available devices, holding the per-device shard size constant (weak
-scaling — the production regime: a bigger cluster scans a bigger column in
-the same time).  For each mesh size prints aggregate bytes/s and the
-per-device efficiency vs the 1-device run.
-
-On a multi-host pod, run under ``dist.initialize()`` on every host; this
-module only sees ``jax.devices()`` and is topology-agnostic.  (A 1-chip
-environment degenerates to the single row — the protocol is what matters.)
+Runs ``parallel.dist.sharded_shared_scan`` over meshes of 1, 2, 4, ... up
+to all available devices, holding the per-device shard size constant (the
+production regime: more devices scan a bigger column in the same time).
+For each mesh size prints aggregate bytes/s and the per-device
+efficiency vs the 1-device run.  Under ``jax.distributed.initialize`` the
+same code spans every process's devices.
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 
 from shared_simd_scan_tpu import layout
 from shared_simd_scan_tpu.bench import harness
-from shared_simd_scan_tpu.bench.timing import measure_loop
+from shared_simd_scan_tpu.bench.timing import measure
 from shared_simd_scan_tpu.ops import unpack as unpack_ops
 from shared_simd_scan_tpu.parallel import dist
-
-
-@functools.partial(
-    jax.jit, static_argnames=("k", "mesh", "width", "n", "interpret")
-)
-def _chain_sharded(tiles, keys, salt, k, *, mesh, width, n, interpret):
-    def body(i, acc):
-        kv = keys + ((salt + jnp.uint32(i)) << 16)
-        _, cnt = dist._sharded_shared_scan_tiles(
-            tiles, kv, mesh=mesh, width=width, n=n, tb=None, interpret=interpret
-        )
-        return acc + cnt[0]
-
-    return jax.lax.fori_loop(0, k, body, jnp.uint32(0))
-
-
-@functools.partial(jax.jit, static_argnames=("k", "mesh", "width", "n"))
-def _chain_sharded_xla(tiles, keys, salt, k, *, mesh, width, n):
-    def body(i, acc):
-        kv = keys + ((salt + jnp.uint32(i)) << 16)
-        _, cnt = dist._sharded_shared_scan_tiles_xla(
-            tiles, kv, mesh=mesh, width=width, n=n
-        )
-        return acc + cnt[0]
-
-    return jax.lax.fori_loop(0, k, body, jnp.uint32(0))
 
 
 def bench_scaling(
@@ -56,65 +24,35 @@ def bench_scaling(
     reps: int = 3,
     k: int = 8,
     width: int = harness.DEFAULT_WIDTH,
-    tier: str = "pallas",
 ):
-    """tier="pallas": the production kernels (interpret-mode when the
-    backend is CPU — protocol demonstration only).  tier="xla": the
-    compiled XLA tier on any backend — the meaningful way to measure the
-    collective pattern on the virtual CPU mesh (compiled execution, no
-    interpreter; pair with single-threaded-eigen XLA_FLAGS so one device
-    = one core and the efficiency column reads as core scaling)."""
+    """-> [(devices, bytes/s, efficiency vs 1 device)] for traced keys
+    (one compiled program per mesh, the query-stream shape)."""
     devices = jax.devices()
-    interpret = devices[0].platform == "cpu" and tier == "pallas"
-    roof1 = harness.hbm_peak_bytes_per_s()
+    roof = harness._roofline()
     sizes = []
     d = 1
     while d <= len(devices):
         sizes.append(d)
         d *= 2
-
     base_bps = None
     results = []
     for nd in sizes:
         mesh = dist.make_mesh(devices[:nd])
         n = harness.values_for(per_device_data_size * nd, width)
-        vals = harness.synth_modk(n, k, width)
-        # setup (not timed): the pack kernel runs interpreted on CPU
-        dev = unpack_ops.pack_device_kernel(
-            vals, width, interpret=devices[0].platform == "cpu"
-        )
+        dev = unpack_ops.pack_device_kernel(harness.synth_modk(n, k, width), width)
         sdev = dist.shard_column(dev, mesh)
         keys = jnp.arange(k, dtype=jnp.uint32)
         traffic = layout.packed_nbytes(width, n) + k * layout.bitvector_words(n) * 4
-        if tier == "xla":
-            chain = functools.partial(
-                _chain_sharded_xla, mesh=mesh, width=width, n=n
-            )
-        else:
-            chain = functools.partial(
-                _chain_sharded, mesh=mesh, width=width, n=n, interpret=interpret
-            )
-        cpu = devices[0].platform == "cpu"
-        # compiled-tier CPU runs need a wider differenced span than the
-        # interpret protocol demo: 16 iterations vs 4 (measured: 4-iter
-        # spans on a contended 4-core box produced 0.5-5.6 ms trial
-        # scatter and a nonsense superlinear efficiency row)
-        meas = measure_loop(
-            chain,
-            (sdev.tiles, keys),
-            trials=reps,
-            est_iter_s=traffic / (400e9 * nd) if not cpu else None,
-            k_lo=(4 if tier == "xla" else 2) if cpu else 8,
-            k_hi=(20 if tier == "xla" else 6) if cpu else None,
-        )
+        fn = jax.jit(lambda kv, sdev=sdev, mesh=mesh: dist.sharded_shared_scan(
+            sdev, kv, mesh))
+        meas = measure(fn, keys, reps=reps)
         bps = traffic / meas.seconds
-        if base_bps is None:
-            base_bps = bps
+        base_bps = base_bps or bps
         eff = bps / (base_bps * nd)
         res = harness.BenchResult(
             f"sharded shared scan k={k} on {nd} device(s)", meas, traffic
         )
-        harness.print_result(res, roof1 * nd if roof1 else None)
+        harness.print_result(res, roof * nd if roof else None)
         print(f"    scaling efficiency vs 1 device: {100 * eff:.1f}%")
         results.append((nd, bps, eff))
     return results

@@ -1,6 +1,6 @@
 """LSB-first match bitvectors (scan outputs).
 
-TPU-native counterpart of the reference's bitvector helpers
+Counterpart of the reference's bitvector helpers
 (src/util.cpp:51-58 ``get_bit`` uint8 overload — the correct one; we do not
 replicate the buggy uint32 overload at util.cpp:60-67 — and the POPCNT
 macro, src/util.hpp:17-25).

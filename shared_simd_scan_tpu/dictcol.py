@@ -65,13 +65,7 @@ def unpack_dict(dc: DictColumn) -> np.ndarray:
 
     from shared_simd_scan_tpu.ops import unpack as unpack_ops
 
-    codes = unpack_ops.values_to_flat(
-        unpack_ops.unpack_tiles(
-            dc.dev.tiles, dc.dev.width,
-            interpret=jax.devices()[0].platform == "cpu",
-        ),
-        dc.n,
-    )
+    codes = unpack_ops.unpack_device(dc.dev)
     return dc.values[np.asarray(jax.device_get(codes))]
 
 
@@ -107,28 +101,28 @@ def normalize(expr):
     raise TypeError(f"not a query expression: {expr!r}")
 
 
-def evaluate(expr, interpret: bool = False):
+def evaluate(expr):
     """query.evaluate over a tree that may mix DictColumn / ForColumn /
     DeviceColumn leaves (ForColumn via forcol.normalize first)."""
     from shared_simd_scan_tpu import forcol
 
-    return q.evaluate(forcol.normalize(normalize(expr)), interpret=interpret)
+    return q.evaluate(forcol.normalize(normalize(expr)))
 
 
-def topk_values(dc: DictColumn, k: int, tb=None, interpret: bool = False):
+def topk_values(dc: DictColumn, k: int):
     """Most frequent LOGICAL values via the code histogram."""
     # cap at the dictionary size, not the histogram domain (2^width) —
     # zero-count codes past values.size are not valid dictionary entries
     k = min(k, dc.values.size)
-    codes, counts = _stats.topk_values(dc.dev, k, tb=tb, interpret=interpret)
+    codes, counts = _stats.topk_values(dc.dev, k)
     keep = codes < dc.values.size
     codes, counts = codes[keep][:k], counts[keep][:k]
     return dc.values[codes], counts
 
 
-def describe(dc: DictColumn, tb=None, interpret: bool = False) -> dict:
+def describe(dc: DictColumn) -> dict:
     """Summary in logical values (mean over the dictionary decode)."""
-    counts = _stats.histogram_full(dc.dev, tb=tb, interpret=interpret)
+    counts = _stats.histogram_full(dc.dev)
     counts = counts[: dc.values.size]
     n = int(counts.sum())
     if n == 0:

@@ -63,12 +63,7 @@ def unpack_for(fc: ForColumn) -> np.ndarray:
 
     from shared_simd_scan_tpu.ops import unpack as unpack_ops
 
-    offs = unpack_ops.values_to_flat(
-        unpack_ops.unpack_tiles(fc.dev.tiles, fc.dev.width, interpret=True)
-        if jax.devices()[0].platform == "cpu"
-        else unpack_ops.unpack_tiles(fc.dev.tiles, fc.dev.width),
-        fc.n,
-    )
+    offs = unpack_ops.unpack_device(fc.dev)
     return np.asarray(jax.device_get(offs)).astype(np.uint64) + np.uint64(
         fc.base
     )
@@ -110,36 +105,32 @@ def normalize(expr):
     raise TypeError(f"not a query expression: {expr!r}")
 
 
-def evaluate(expr, interpret: bool = False):
+def evaluate(expr):
     """query.evaluate over a tree that may mix ForColumn and DeviceColumn
     leaves (all of the same n)."""
-    return q.evaluate(normalize(expr), interpret=interpret)
+    return q.evaluate(normalize(expr))
 
 
-def masked_aggregate(fc: ForColumn, bits, tb=None, interpret: bool = False):
+def masked_aggregate(fc: ForColumn, bits):
     """SUM + COUNT of a FOR-encoded measure column over a match
     bitvector: exact logical sum = offset sum + base * count."""
     from shared_simd_scan_tpu.ops import aggregate as agg_ops
 
-    s, c = agg_ops.masked_aggregate_device(
-        fc.dev, bits, tb=tb, interpret=interpret
-    )
+    s, c = agg_ops.masked_aggregate_device(fc.dev, bits)
     return int(s) + fc.base * int(c), c
 
 
-def describe(fc: ForColumn, tb=None, interpret: bool = False) -> dict:
+def describe(fc: ForColumn) -> dict:
     """stats.describe shifted back to logical values."""
-    d = _stats.describe(fc.dev, tb=tb, interpret=interpret)
+    d = _stats.describe(fc.dev)
     if d["n"]:
         for key in ("min", "max", "mean", "median"):
             d[key] = d[key] + fc.base
     return d
 
 
-def quantiles(fc: ForColumn, qs, tb=None, interpret: bool = False):
-    return _stats.quantiles(
-        fc.dev, qs, tb=tb, interpret=interpret
-    ).astype(np.uint64) + np.uint64(fc.base)
+def quantiles(fc: ForColumn, qs):
+    return _stats.quantiles(fc.dev, qs).astype(np.uint64) + np.uint64(fc.base)
 
 
 __all__ = [

@@ -1,14 +1,14 @@
 """Native host runtime bindings (csrc/sss_host.cpp via ctypes).
 
-The TPU chips run the Pallas kernels; this module is the *host* side of the
+The device runs the scan tiers; this module is the *host* side of the
 framework — the role the reference's C++ library plays on CPU (reference:
 src/simd_scan.hpp:46-120 public API).  Uses:
 
 - **Fast ingest**: pack a column on the host (OpenMP, memory-bound) before
   device upload, instead of burning device time on packing.
 - **Independent verification**: a C++ oracle with no JAX in the loop, used
-  by the conformance tests to cross-check the jnp oracle and the Pallas
-  kernels (three independent implementations must agree byte-for-byte).
+  by the conformance tests to cross-check the jnp oracle and the device
+  tiers (three independent implementations must agree byte-for-byte).
 - **Host fallback**: scans without any accelerator present.
 
 The library is compiled on first use with ``make`` (g++, -O3 -fopenmp).
@@ -153,8 +153,8 @@ def interleave_bytes(bitvectors: np.ndarray, nbytes: int | None = None) -> np.nd
     The host half of the linear-export path (reference byte order,
     simd_scan_shared_linear.cpp:57): fetch the device-native (k, W) match
     words, view them as (k, stride) bytes, and interleave here instead of
-    paying the device relayout — see ops/linear.py for the device-side
-    alternative and bench_results/linear_v5e_512m.csv for both costs."""
+    paying the device relayout — see ops.scan.interleave_linear for the
+    device-side alternative."""
     lib = _load()
     bitvectors = np.ascontiguousarray(bitvectors, dtype=np.uint8)
     if bitvectors.ndim != 2:

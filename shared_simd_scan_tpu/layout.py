@@ -1,6 +1,6 @@
 """Bit-packed column layout: buffer contracts, packing, and device tiling.
 
-This module owns the storage format of the library and is the TPU-native
+This module owns the storage format of the library and is the
 re-design of the reference's buffer-size contract and compressor
 (reference: src/simd_scan.hpp:20-40 ``compressed_buffer_size`` /
 ``decompression_output_buffer_size`` / ``scan_output_buffer_size``;
@@ -17,8 +17,8 @@ the byte layout the reference produces with little-endian ``uint64`` words
 flat-bitstream definition; we do *not* replicate its shift-count UB, see
 SURVEY.md §5 "do not replicate").
 
-Device format (TPU tile layout)
--------------------------------
+Device format (tile layout)
+--------------------------
 The key identity: **32 values at width c occupy exactly c uint32 words**
 (32*c bits).  A "block" is 32 consecutive values <-> c consecutive words,
 and every block starts word-aligned.  The device layout transposes blocks
@@ -27,11 +27,11 @@ into the lane dimension:
     device[c, B1, 128]   where block b = b1*128 + lane holds words
                          canonical[b*c : (b+1)*c] along axis 0.
 
-With this layout the Pallas kernels need **no gathers and no byte
+With this layout the scan tiers need **no gathers and no byte
 shuffles** (the reference's ``_mm_shuffle_epi8`` heart, SURVEY.md §7 "hard
 parts"): for output value r in 0..31 the source words are *static* rows
 ``device[k_r]`` / ``device[k_r+1]`` and the shifts are scalar constants —
-each row op processes 128*TS blocks at once on the VPU.
+each row op processes 128 blocks per block row at once.
 
 All sizes here are element counts / shapes, not raw bytes; the only byte
 quantities are in :func:`packed_nbytes` (used for bytes/s accounting and
@@ -46,10 +46,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# Lane count of the TPU vector unit; the block axis is tiled by this.
+# Blocks per device row; the block axis is tiled by this (storage format,
+# shared with csrc/sss_host.cpp and io.py).
 LANES = 128
-# Sublane count: the device block axis (B1) is padded to a multiple of this
-# so Pallas block shapes meet the (8, 128) tiling constraint.
+# Row granularity: the device block axis (B1) is padded to a multiple of
+# this, so every shard and every Triton tile covers whole 8-row groups.
 SUBLANES = 8
 # Values per block. Fixed by the uint32 word size: 32 values * c bits = c words.
 BLOCK_VALUES = 32
@@ -58,8 +59,8 @@ MIN_WIDTH = 1
 MAX_WIDTH = 31
 
 
-# Hit counts are uint32 end-to-end (a deliberate kernel-perf choice:
-# 64-bit accumulation is not native on the VPU).  A single key can match
+# Hit counts are uint32 end-to-end (device arithmetic is 32-bit: JAX runs
+# without 64-bit types).  A single key can match
 # at most n rows, so capping the column at 2^32 - 1 values makes count
 # overflow impossible rather than silent.  At width 1 that is a 512 MiB
 # packed column; wider columns hit memory limits long before this cap.
@@ -103,10 +104,10 @@ def num_blocks(n: int) -> int:
 
 
 def padded_blocks(n: int, lanes: int = LANES) -> int:
-    """Blocks padded up to a multiple of the (sublane, lane) device tile.
+    """Blocks padded up to a multiple of the (8-row, 128-lane) device tile.
 
     B1 = padded_blocks(n) // LANES is padded to a power-of-two-friendly
-    multiple so the kernels' sublane tile sizes (up to 512) divide it:
+    multiple so power-of-two row tiles (up to 512) divide it:
     small columns pad B1 to a multiple of 8, mid-size to 64, large to 512.
     Worst-case padding overhead stays under ~12% and vanishes for large
     columns; padding blocks are zero and masked by the kernels' validity
@@ -144,7 +145,7 @@ def unpack_schedule(width: int) -> list[tuple[int, int, bool]]:
     shift / clean mask generators (simd_scan_commons.hpp:5-90, M1-M5 in
     SURVEY.md §2.2) and the prototype tables in
     scripts/decompression_masks*.py collapse to this single table because
-    the device layout makes word indices static sublane rows.
+    the device layout makes word indices static rows.
 
     Note k+1 <= width-1 always: value 31 ends exactly at bit 32*width, so a
     block never reads its neighbour's words.
@@ -252,7 +253,7 @@ class PackedColumn:
 def pack(values, width: int) -> PackedColumn:
     """Compress values (1-D, uint) into a canonical PackedColumn.
 
-    TPU-native counterpart of compress_9bit_input
+    Counterpart of compress_9bit_input
     (simd_scan_compression.cpp:53-104) generalized to widths 1..31;
     fully vectorized (32 static lane-wise OR steps), no per-element loop.
     """
@@ -269,7 +270,7 @@ def pack(values, width: int) -> PackedColumn:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceColumn:
-    """A packed column in TPU tile layout: uint32[width, B1, 128].
+    """A packed column in device tile layout: uint32[width, B1, 128].
 
     Block b = b1*128 + lane; axis 0 is the word-within-block axis. ``n`` is
     the true value count; blocks past num_blocks(n) are zero padding.
@@ -306,7 +307,7 @@ def _relayout_to_canonical(tiles: jax.Array, width: int, b: int) -> jax.Array:
 
 
 def to_device(col: PackedColumn) -> DeviceColumn:
-    """One-time relayout canonical -> TPU tile layout (single XLA transpose)."""
+    """One-time relayout canonical -> device tile layout (single XLA transpose)."""
     bp = padded_blocks(col.n)
     return DeviceColumn(
         width=col.width, n=col.n, tiles=_relayout_to_device(col.words, col.width, bp)

@@ -90,19 +90,19 @@ def _strip(expr):
     return q.Or(*[_strip(t) for t in expr.terms])
 
 
-def _eval_tu(expr, n: int, interpret: bool):
+def _eval_tu(expr, n: int):
     """-> (t, u) canonical word arrays for the subtree."""
     zeros = jnp.zeros((n + 31) // 32, jnp.uint32)
     if not _has_nullable(expr):
         # pure subtree: the ordinary planner (fused passes), never unknown
-        bits, _ = q.evaluate(_strip(expr), interpret=interpret)
+        bits, _ = q.evaluate(_strip(expr))
         return bits, zeros
     if isinstance(expr, (q.Range, q.In)):
         col = expr.col
-        bits, _ = q.evaluate(_strip(expr), interpret=interpret)
+        bits, _ = q.evaluate(_strip(expr))
         return bitvector.logical_andnot(bits, col.nulls), col.nulls
     if isinstance(expr, q.Not):
-        t, u = _eval_tu(expr.term, n, interpret)
+        t, u = _eval_tu(expr.term, n)
         return bitvector.logical_not(t | u, n), u
     if isinstance(expr, (q.And, q.Or)):
         # group the pure (non-nullable) siblings into ONE subtree so the
@@ -112,7 +112,7 @@ def _eval_tu(expr, n: int, interpret: bool):
         mixed = [x for x in expr.terms if _has_nullable(x)]
         ctor = q.And if isinstance(expr, q.And) else q.Or
         terms = ([ctor(*pure)] if pure else []) + mixed
-        ts_us = [_eval_tu(x, n, interpret) for x in terms]
+        ts_us = [_eval_tu(x, n) for x in terms]
         t = ts_us[0][0]
         tu = ts_us[0][0] | ts_us[0][1]
         if isinstance(expr, q.And):
@@ -127,7 +127,7 @@ def _eval_tu(expr, n: int, interpret: bool):
     raise TypeError(f"not a query expression: {expr!r}")
 
 
-def evaluate(expr, interpret: bool = False):
+def evaluate(expr):
     """SQL-WHERE semantics: -> (definitely-true bitvector words, count).
     Rows where the predicate is UNKNOWN (NULL involved) are excluded,
     exactly as SQL filters them."""
@@ -149,7 +149,7 @@ def evaluate(expr, interpret: bool = False):
     for c in cols:
         if c.n != n:
             raise ValueError("query columns must share n")
-    t, _ = _eval_tu(expr, n, interpret)
+    t, _ = _eval_tu(expr, n)
     return t, bitvector.popcount(t)
 
 

@@ -1,1 +1,1 @@
-"""Compute ops: pure-jnp oracles and Pallas TPU kernels."""
+"""Compute ops: the scan tiers, their drivers and the pure-jnp oracles."""

@@ -7,21 +7,21 @@ columns — the predicate column is unpacked, compared against the key
 table, and the matching measure values are accumulated per key without
 ever materializing a bitvector or the decompressed columns.
 
-TPU-native design notes:
+Design notes:
 
-- The VPU has no 64-bit lanes, so exact sums are built from **16-bit
-  split parts in uint32 accumulators** with statically provable
-  headroom: each (block, lane) element accumulates <= 32 values of a
-  part < 2^16 (< 2^21), the in-kernel sublane reduction adds <= 256 of
-  those (< 2^29 < 2^32), and the final cross-step reduction runs in
-  numpy uint64 on the host over the small per-step partial grid —
-  bit-exact for any n and width, no emulated wide math in the kernel.
+- Device arithmetic is 32-bit (JAX runs without 64-bit types), so exact
+  sums are built from **16-bit split parts in int32 accumulators** with
+  statically provable headroom: each (block, lane) element accumulates
+  <= 32 values of a part < 2^16 (< 2^21), the on-device reduction adds
+  <= 256 block rows of those (< 2^29 < 2^31) into a (steps, k, 128)
+  partial grid, and the final reduction runs in numpy uint64 on the host
+  over that small grid (:func:`finalize_sums`) — bit-exact for any n and
+  width, no emulated wide math on the device.
 - Padding blocks are zero-filled; instead of masking every key's
   accumulator, invalid values' *predicate* is rewritten once per value
   slot to the unmatchable sentinel 0xFFFFFFFF, so every compare fails
   for them (values are < 2^width <= 2^31).
-- k is a static jit specialization (k <= 32 unrolled, like the shared
-  scan static tier).
+- k is a static jit specialization (k <= 32 unrolled).
 
 Contract: ``aggregate_scan_device(pdev, mdev, keys)`` -> (sums uint64
 numpy (k,), counts uint32 (k,)).  The sums are host-finalized (exact);
@@ -35,88 +35,78 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from shared_simd_scan_tpu.layout import (
-    BLOCK_VALUES,
-    LANES,
-    DeviceColumn,
-)
-from shared_simd_scan_tpu.ops.unpack import (
-    _pick_tb,
-    _unpack_block_values,
-    _unpack_value_at,
-)
+from shared_simd_scan_tpu.layout import BLOCK_VALUES, LANES, DeviceColumn
+from shared_simd_scan_tpu.ops.driver import popcount_sum, valid_word, word_rows
+from shared_simd_scan_tpu.ops.unpack import unpack_value_at
 
 MAX_KEYS = 32
 
+# Block rows per on-device partial: 256 rows of < 2^21 stay < 2^29.
+_PARTIAL_ROWS = 256
 
-def _agg_kernel(
-    off_ref, keys_ref, p_ref, m_ref, cnt_ref, slo_ref, shi_ref, *,
-    wp, wm, k, tb, n, split,
-):
-    """One grid step: per-key counts + sum parts over a (tb, 128) block
-    tile.  Outputs are per-step partial rows (1, k, LANES)."""
-    i = pl.program_id(0)
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
-    row = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-    g = off_ref[0, 0] + (i * tb + row) * LANES + lane  # global block id
-    valid = jnp.where(
-        g < full,
-        jnp.uint32(0xFFFFFFFF),
-        jnp.where(g == full, jnp.uint32((1 << rem) - 1 if rem else 0), jnp.uint32(0)),
-    )
 
-    # Accumulators are int32: every staged value is < 2^29 (16-bit part x
-    # 32 values x 256 sublanes) so signed arithmetic is exact, and Mosaic
-    # does not implement in-kernel reductions over unsigned ints.
-    cacc = [jnp.zeros((tb, LANES), jnp.int32) for _ in range(k)]
-    lacc = [jnp.zeros((tb, LANES), jnp.int32) for _ in range(k)]
-    hacc = [jnp.zeros((tb, LANES), jnp.int32) for _ in range(k)] if split else None
+def _row_partials(x: jax.Array) -> jax.Array:
+    """(B1, 128) int32 -> (steps, 128) int32 sums over groups of at most
+    256 block rows (B1 is a multiple of 8, so a power-of-two group
+    divides it)."""
+    b1 = x.shape[0]
+    g = _PARTIAL_ROWS
+    while b1 % g:
+        g //= 2
+    return jnp.sum(x.reshape(b1 // g, g, LANES), axis=1)
+
+
+def _stack_partials(rows: list) -> jax.Array:
+    """k (B1, 128) accumulators -> (steps, k, 128) partial grid."""
+    return jnp.stack([_row_partials(r) for r in rows], axis=1)
+
+
+def _check_keys(k: int) -> None:
+    if not (1 <= k <= MAX_KEYS):
+        raise ValueError(f"aggregate scan supports 1 <= k <= {MAX_KEYS}, got {k}")
+
+
+def _masked_predicate(pwords, wp, valid, r):
+    """Predicate value r, or the unmatchable sentinel for padding slots."""
+    p = unpack_value_at(pwords, wp, r)
+    vbit = (valid >> jnp.uint32(r)) & jnp.uint32(1)
+    return jnp.where(vbit == jnp.uint32(1), p, jnp.uint32(0xFFFFFFFF))
+
+
+@functools.partial(jax.jit, static_argnames=("wp", "wm", "n"))
+def _agg_compare_impl(ptiles, mtiles, keys, block_offset, *, wp, wm, n):
+    """Select-accumulate tier: per (value, key) one compare and two or
+    three selected adds."""
+    k = int(keys.shape[0])
+    split = wm > 16
+    pwords, mwords = word_rows(ptiles), word_rows(mtiles)
+    valid = valid_word(0, ptiles.shape[1:], n, block_offset)
+    ks = [keys[j] for j in range(k)]
     zero = jnp.int32(0)
+    cacc = [zero] * k
+    lacc = [zero] * k
+    hacc = [zero] * k
     for r in range(BLOCK_VALUES):
-        p = _unpack_value_at(p_ref, wp, r)
-        m = _unpack_value_at(m_ref, wm, r)
-        # invalid value slots: unmatchable predicate sentinel (2 ops,
-        # shared across all keys)
-        vbit = (valid >> jnp.uint32(r)) & jnp.uint32(1)
-        p = jnp.where(vbit == jnp.uint32(1), p, jnp.uint32(0xFFFFFFFF))
-        if split:
-            mlo = (m & jnp.uint32(0xFFFF)).astype(jnp.int32)
-            mhi = (m >> jnp.uint32(16)).astype(jnp.int32)
-        else:
-            mlo = m.astype(jnp.int32)
+        p = _masked_predicate(pwords, wp, valid, r)
+        m = unpack_value_at(mwords, wm, r)
+        mlo = (m & jnp.uint32(0xFFFF)).astype(jnp.int32) if split else m.astype(jnp.int32)
+        mhi = (m >> jnp.uint32(16)).astype(jnp.int32)
         for j in range(k):
-            match = p == keys_ref[j, 0]
+            match = p == ks[j]
             cacc[j] = cacc[j] + jnp.where(match, jnp.int32(1), zero)
             lacc[j] = lacc[j] + jnp.where(match, mlo, zero)
             if split:
                 hacc[j] = hacc[j] + jnp.where(match, mhi, zero)
-
-    for j in range(k):
-        cnt_ref[0, j] = jnp.sum(cacc[j], axis=0)
-        slo_ref[0, j] = jnp.sum(lacc[j], axis=0)
-        shi_ref[0, j] = (
-            jnp.sum(hacc[j], axis=0) if split else jnp.zeros((LANES,), jnp.int32)
-        )
-
-
-def _agg_tb(wp: int, wm: int, k: int, b1: int, tb: int | None) -> int:
-    # double-buffered inputs + 3k live accumulators + transients, x512 B.
-    # tb is clamped to 256 even when caller-supplied: the int32 sum
-    # partials' headroom proof assumes <= 256 sublane rows (lo element
-    # < 2^21 summed over tb rows; at tb >= 1024 adversarial all-match
-    # data could overflow — review finding)
-    per_tb = 512 * (2 * (wp + wm) + 3 * k + 8)
-    tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-    return _pick_tb(b1, min(tb, 256) if tb is not None else tb_auto)
+    shape = ptiles.shape[1:]
+    counts = jnp.stack(
+        [jnp.sum(jnp.broadcast_to(c, shape), dtype=jnp.uint32) for c in cacc]
+    )
+    slo = _stack_partials([jnp.broadcast_to(a, shape) for a in lacc])
+    shi = _stack_partials([jnp.broadcast_to(a, shape) for a in hacc])
+    return counts, slo, shi
 
 
-@functools.partial(
-    jax.jit, static_argnames=("wp", "wm", "n", "tb", "interpret")
-)
 def aggregate_scan_tiles(
     ptiles: jax.Array,
     mtiles: jax.Array,
@@ -124,8 +114,6 @@ def aggregate_scan_tiles(
     wp: int,
     wm: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """-> (counts uint32 (k,), sum_lo partials, sum_hi partials).
@@ -134,46 +122,10 @@ def aggregate_scan_tiles(
     is < 2^29 by construction, see module docstring, so the device-side
     arithmetic never wraps).  Combine them exactly with
     :func:`finalize_sums` (host, uint64)."""
-    _, b1, lanes = ptiles.shape
-    assert lanes == LANES
-    assert mtiles.shape[1] == b1, "predicate/measure columns must share n"
-    k = int(keys.shape[0])
-    if not (1 <= k <= MAX_KEYS):
-        raise ValueError(f"aggregate scan supports 1 <= k <= {MAX_KEYS}, got {k}")
-    split = wm > 16
-    tb = _agg_tb(wp, wm, k, b1, tb)
-    grid = (b1 // tb,)
-    keys2 = keys.astype(jnp.uint32).reshape(k, 1)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    cnt, slo, shi = pl.pallas_call(
-        functools.partial(
-            _agg_kernel, wp=wp, wm=wm, k=k, tb=tb, n=n, split=split
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((k, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (wp, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (wm, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )(off, keys2, ptiles, mtiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    return counts, slo, shi
+    assert mtiles.shape[1] == ptiles.shape[1], "predicate/measure columns must share n"
+    keys = jnp.asarray(keys, jnp.uint32)
+    _check_keys(int(keys.shape[0]))
+    return _agg_compare_impl(ptiles, mtiles, keys, block_offset, wp=wp, wm=wm, n=n)
 
 
 # ---------------------------------------------------------------------------
@@ -184,163 +136,67 @@ def aggregate_scan_tiles(
 #
 #     SUM_j = sum_p 2^p * popcount(match_j & mplane_p)
 #
-# One block tile pays a fixed unpack + SWAPMOVE bit-plane transpose of BOTH
-# columns (amortized over every key) plus ~4 vector ops per (key,
-# measure-plane) WORD of 32 values — O(k*wm/32) per value instead of the
-# select-accumulate kernel's O(k) per value.  Match words reuse the
-# memoized AND-DAG of the static bit-sliced scan (scan._combo) for
-# concrete keys and the XOR plane fold for traced keys; the crossover vs
-# the select-accumulate kernel is priced by counted static cost
+# One pass pays a fixed unpack + SWAPMOVE bit-plane transpose of BOTH
+# columns (amortized over every key) plus ~4 ops per (key, measure-plane)
+# WORD of 32 values — O(k*wm/32) per value instead of the
+# select-accumulate tier's O(k) per value.  Match words reuse the memoized
+# AND-DAG of the static bit-sliced scan (scan._combo) for concrete keys and
+# the XOR plane fold for traced keys; the crossover vs the select-
+# accumulate tier is priced by counted static cost
 # (:func:`pick_aggregate_tier`), the same convention as
-# scan.pick_concrete_tier.  Headroom is provable like the select kernel's:
-# each popcount is <= 32, so a (row, lane) partial is < 32 * (2^16 - 1)
-# < 2^21 (planes 0..15 in the lo accumulator, 16..30 re-based in hi) and
-# the sublane reduction over tb <= 256 rows stays < 2^29 — int32-exact,
-# finalized by the same :func:`finalize_sums`.
+# scan.pick_concrete_tier.  Headroom is provable like the select tier's:
+# each popcount is <= 32, so a (row, lane) element is < 32 * (2^16 - 1)
+# < 2^21 (planes 0..15 in the lo part, 16..30 re-based in hi).
 
 
-def _valid_word(off_ref, i, tb, n):
-    """(tb, LANES) uint32 validity word: bit r set iff value 32*blk + r
-    is a real (non-padding) element."""
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
-    row = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-    g = off_ref[0, 0] + (i * tb + row) * LANES + lane
-    return jnp.where(
-        g < full,
-        jnp.uint32(0xFFFFFFFF),
-        jnp.where(g == full, jnp.uint32((1 << rem) - 1 if rem else 0), jnp.uint32(0)),
-    )
+def _bitplane_parts(match_words, mplanes, wm):
+    """Per key: count (uint32 scalar) and (B1, 128) int32 lo/hi sum parts."""
+    counts, los, his = [], [], []
+    for mw in match_words:
+        counts.append(popcount_sum(mw))
+        lo = jnp.int32(0)
+        hi = jnp.int32(0)
+        for p in range(wm):
+            pc = jax.lax.population_count(mw & mplanes[p]).astype(jnp.int32)
+            if p < 16:
+                lo = lo + (pc << p)
+            else:
+                hi = hi + (pc << (p - 16))
+        los.append(lo)
+        his.append(jnp.broadcast_to(hi, mw.shape))
+    return jnp.stack(counts), _stack_partials(los), _stack_partials(his)
 
 
-def _bitplane_sum_store(j, mw, mplanes, wm, cnt_ref, slo_ref, shi_ref):
-    """Store count + sum parts of key row j from its match word ``mw``."""
-    cnt_ref[0, j] = jnp.sum(jax.lax.population_count(mw).astype(jnp.int32), axis=0)
-    lo = jnp.zeros(mw.shape, jnp.int32)
-    hi = jnp.zeros(mw.shape, jnp.int32) if wm > 16 else None
-    for p in range(wm):
-        pc = jax.lax.population_count(mw & mplanes[p]).astype(jnp.int32)
-        if p < 16:
-            lo = lo + (pc << p)
-        else:
-            hi = hi + (pc << (p - 16))
-    slo_ref[0, j] = jnp.sum(lo, axis=0)
-    shi_ref[0, j] = (
-        jnp.sum(hi, axis=0) if wm > 16 else jnp.zeros((LANES,), jnp.int32)
-    )
+@functools.partial(jax.jit, static_argnames=("keys", "wp", "wm", "n"))
+def _agg_bitplane_static_impl(ptiles, mtiles, block_offset, *, keys, wp, wm, n):
+    from shared_simd_scan_tpu.ops.scan import _combo, bitplanes
 
-
-def _agg_bitplane_static_kernel(
-    off_ref, p_ref, m_ref, cnt_ref, slo_ref, shi_ref, *, wp, wm, keys, tb, n
-):
-    """One grid step: concrete-key bit-plane aggregate over a (tb, 128)
-    block tile.  Match words via the shared AND-DAG (scan._combo)."""
-    from shared_simd_scan_tpu.ops.scan import _combo, _transpose_bitplanes
-
-    i = pl.program_id(0)
-    valid = _valid_word(off_ref, i, tb, n)
-    pvs = [v for _, v in _unpack_block_values(p_ref, wp)]
-    pplanes = _transpose_bitplanes(pvs, wp)
-    mvs = [v for _, v in _unpack_block_values(m_ref, wm)]
-    mplanes = _transpose_bitplanes(mvs, wm)
+    valid = valid_word(0, ptiles.shape[1:], n, block_offset)
+    pplanes = bitplanes(word_rows(ptiles), wp)
+    mplanes = bitplanes(word_rows(mtiles), wm)
     dom = 1 << wp
-    zero = jnp.zeros((tb, LANES), jnp.uint32)
+    zero = jnp.zeros(ptiles.shape[1:], jnp.uint32)
     memo: dict = {}
-    for j, key in enumerate(keys):
-        mw = (
-            (_combo(pplanes, 0, wp, int(key), memo) & valid)
-            if int(key) < dom
-            else zero
-        )
-        _bitplane_sum_store(j, mw, mplanes, wm, cnt_ref, slo_ref, shi_ref)
+    match = [
+        _combo(pplanes, 0, wp, key, memo) & valid if key < dom else zero
+        for key in keys
+    ]
+    return _bitplane_parts(match, mplanes, wm)
 
 
-def _agg_bitplane_kernel(
-    off_ref, keys_ref, p_ref, m_ref, cnt_ref, slo_ref, shi_ref, *,
-    wp, wm, k, tb, n,
-):
-    """Traced-keys variant: match words via the XOR plane fold (2*wp ops
-    per key), otherwise identical to the static kernel."""
-    from shared_simd_scan_tpu.ops.scan import _transpose_bitplanes
+@functools.partial(jax.jit, static_argnames=("wp", "wm", "n"))
+def _agg_bitplane_impl(ptiles, mtiles, keys, block_offset, *, wp, wm, n):
+    from shared_simd_scan_tpu.ops.scan import _plane_fold, bitplanes
 
-    i = pl.program_id(0)
-    valid = _valid_word(off_ref, i, tb, n)
-    pvs = [v for _, v in _unpack_block_values(p_ref, wp)]
-    pplanes = _transpose_bitplanes(pvs, wp)
-    mvs = [v for _, v in _unpack_block_values(m_ref, wm)]
-    mplanes = _transpose_bitplanes(mvs, wm)
-    dom = jnp.uint32(1 << wp)
-    one = jnp.uint32(1)
-    for j in range(k):
-        key = keys_ref[j, 0]
-        km = jnp.where(key < dom, jnp.uint32(0xFFFFFFFF), jnp.uint32(0))
-        acc = None
-        for p in range(wp):
-            mask = ((key >> jnp.uint32(p)) & one) - one
-            term = pplanes[p] ^ mask
-            acc = term if acc is None else acc & term
-        _bitplane_sum_store(
-            j, acc & km & valid, mplanes, wm, cnt_ref, slo_ref, shi_ref
-        )
+    valid = valid_word(0, ptiles.shape[1:], n, block_offset)
+    pplanes = bitplanes(word_rows(ptiles), wp)
+    mplanes = bitplanes(word_rows(mtiles), wm)
+    match = [
+        _plane_fold(pplanes, keys[j], wp) & valid for j in range(keys.shape[0])
+    ]
+    return _bitplane_parts(match, mplanes, wm)
 
 
-def _agg_bitplane_tb(wp, wm, live, b1, tb):
-    # double-buffered inputs + both plane sets + transpose transients (~40)
-    # + measured DAG liveness + per-key transients + 64 vecs Mosaic
-    # headroom.  Caller tb clamped to 256 (same int32 sum-partial
-    # headroom proof as _agg_tb — review finding)
-    per_tb = 512 * (3 * (wp + wm) + live + 40 + 8 + 64)
-    tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-    return _pick_tb(b1, min(tb, 256) if tb is not None else tb_auto)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("keys", "wp", "wm", "n", "tb", "interpret")
-)
-def _agg_bitplane_static_impl(
-    ptiles, mtiles, keys: tuple, wp, wm, n, tb, interpret, block_offset
-):
-    from shared_simd_scan_tpu.ops.scan import _static_dag_liveness
-
-    _, b1, lanes = ptiles.shape
-    assert lanes == LANES
-    k = len(keys)
-    live = _static_dag_liveness(wp, keys)
-    tb = _agg_bitplane_tb(wp, wm, live, b1, tb)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    cnt, slo, shi = pl.pallas_call(
-        functools.partial(
-            _agg_bitplane_static_kernel, wp=wp, wm=wm, keys=keys, tb=tb, n=n
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        ),
-        grid=(b1 // tb,),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (wp, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (wm, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )(off, ptiles, mtiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    return counts, slo, shi
-
-
-@functools.partial(
-    jax.jit, static_argnames=("wp", "wm", "n", "tb", "interpret")
-)
 def aggregate_bitplane_tiles(
     ptiles: jax.Array,
     mtiles: jax.Array,
@@ -348,51 +204,15 @@ def aggregate_bitplane_tiles(
     wp: int,
     wm: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Traced-keys bit-plane aggregate — same contract as
     :func:`aggregate_scan_tiles` (counts, sum_lo partials, sum_hi
     partials; finalize with :func:`finalize_sums`)."""
-    _, b1, lanes = ptiles.shape
-    assert lanes == LANES
-    assert mtiles.shape[1] == b1, "predicate/measure columns must share n"
-    k = int(keys.shape[0])
-    if not (1 <= k <= MAX_KEYS):
-        raise ValueError(f"aggregate scan supports 1 <= k <= {MAX_KEYS}, got {k}")
-    tb = _agg_bitplane_tb(wp, wm, 2 * k, b1, tb)
-    keys2 = keys.astype(jnp.uint32).reshape(k, 1)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    cnt, slo, shi = pl.pallas_call(
-        functools.partial(
-            _agg_bitplane_kernel, wp=wp, wm=wm, k=k, tb=tb, n=n
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        ),
-        grid=(b1 // tb,),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((k, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (wp, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (wm, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )(off, keys2, ptiles, mtiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    return counts, slo, shi
+    assert mtiles.shape[1] == ptiles.shape[1], "predicate/measure columns must share n"
+    keys = jnp.asarray(keys, jnp.uint32)
+    _check_keys(int(keys.shape[0]))
+    return _agg_bitplane_impl(ptiles, mtiles, keys, block_offset, wp=wp, wm=wm, n=n)
 
 
 def aggregate_bitplane_static_tiles(
@@ -402,28 +222,24 @@ def aggregate_bitplane_static_tiles(
     wp: int,
     wm: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """Concrete-keys bit-plane aggregate (shared AND-DAG match words) —
     same contract as :func:`aggregate_scan_tiles`."""
     arr = np.asarray(keys, dtype=np.uint32)
-    k = int(arr.shape[0])
-    if not (1 <= k <= MAX_KEYS):
-        raise ValueError(f"aggregate scan supports 1 <= k <= {MAX_KEYS}, got {k}")
+    _check_keys(int(arr.shape[0]))
     return _agg_bitplane_static_impl(
-        ptiles, mtiles, tuple(int(x) for x in arr), wp, wm, n, tb,
-        interpret, block_offset,
+        ptiles, mtiles, block_offset, keys=tuple(int(x) for x in arr),
+        wp=wp, wm=wm, n=n,
     )
 
 
 # Counted static costs in the dispatch's quarter-ops-per-value units
 # (ops per 32-value word / 8), the same convention as scan.bitsliced_cost.
-# Constants are per-32-value vector-op counts of the kernel bodies:
-# unpack ~2.5 ops/value/column, select-accumulate ~(1 cmp + 2 or 3
-# where+add pairs) per key per VALUE, bit-plane ~4 ops per key per
-# measure-plane WORD plus the fixed SWAPMOVE transposes.
+# Constants are per-32-value op counts of the tier bodies: unpack ~2.5
+# ops/value/column, select-accumulate ~(1 cmp + 2 or 3 where+add pairs)
+# per key per VALUE, bit-plane ~4 ops per key per measure-plane WORD plus
+# the fixed SWAPMOVE transposes.
 
 
 def _agg_compare_cost(wp: int, wm: int, k: int) -> int:
@@ -477,52 +293,39 @@ def pick_aggregate_tier(wp: int, wm: int, keys) -> str:
     return "bitplane" if cost_bp < _agg_compare_cost(wp, wm, k) else "compare"
 
 
-def _minmax_kernel(
-    off_ref, keys_ref, p_ref, m_ref, cnt_ref, min_ref, max_ref, *,
-    wp, wm, k, tb, n,
-):
+@functools.partial(jax.jit, static_argnames=("wp", "wm", "n"))
+def _minmax_impl(ptiles, mtiles, keys, block_offset, *, wp, wm, n):
     """Per-key MIN/MAX of the measure column where the predicate matches.
 
     Non-matching slots contribute the identity (int32 max for MIN — at or
     above any in-domain value since wm <= 31 — and -1 for MAX); values
-    are < 2^31 so int32 order equals unsigned order and Mosaic's signed
-    reductions apply."""
-    i = pl.program_id(0)
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
-    row = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-    g = off_ref[0, 0] + (i * tb + row) * LANES + lane
-    valid = jnp.where(
-        g < full,
-        jnp.uint32(0xFFFFFFFF),
-        jnp.where(g == full, jnp.uint32((1 << rem) - 1 if rem else 0), jnp.uint32(0)),
-    )
-
+    are < 2^31 so int32 order equals unsigned order."""
+    k = int(keys.shape[0])
+    pwords, mwords = word_rows(ptiles), word_rows(mtiles)
+    valid = valid_word(0, ptiles.shape[1:], n, block_offset)
+    ks = [keys[j] for j in range(k)]
     min_id = jnp.int32(0x7FFFFFFF)
     max_id = jnp.int32(-1)
-    cacc = [jnp.zeros((tb, LANES), jnp.int32) for _ in range(k)]
-    mins = [jnp.full((tb, LANES), min_id, jnp.int32) for _ in range(k)]
-    maxs = [jnp.full((tb, LANES), max_id, jnp.int32) for _ in range(k)]
+    cacc = [jnp.int32(0)] * k
+    mins = [min_id] * k
+    maxs = [max_id] * k
     for r in range(BLOCK_VALUES):
-        p = _unpack_value_at(p_ref, wp, r)
-        m = _unpack_value_at(m_ref, wm, r).astype(jnp.int32)
-        vbit = (valid >> jnp.uint32(r)) & jnp.uint32(1)
-        p = jnp.where(vbit == jnp.uint32(1), p, jnp.uint32(0xFFFFFFFF))
+        p = _masked_predicate(pwords, wp, valid, r)
+        m = unpack_value_at(mwords, wm, r).astype(jnp.int32)
         for j in range(k):
-            match = p == keys_ref[j, 0]
+            match = p == ks[j]
             cacc[j] = cacc[j] + jnp.where(match, jnp.int32(1), jnp.int32(0))
             mins[j] = jnp.minimum(mins[j], jnp.where(match, m, min_id))
             maxs[j] = jnp.maximum(maxs[j], jnp.where(match, m, max_id))
+    shape = ptiles.shape[1:]
+    counts = jnp.stack(
+        [jnp.sum(jnp.broadcast_to(c, shape), dtype=jnp.uint32) for c in cacc]
+    )
+    mn = jnp.stack([jnp.min(jnp.broadcast_to(x, shape), axis=0) for x in mins])
+    mx = jnp.stack([jnp.max(jnp.broadcast_to(x, shape), axis=0) for x in maxs])
+    return counts, mn[None], mx[None]
 
-    for j in range(k):
-        cnt_ref[0, j] = jnp.sum(cacc[j], axis=0)
-        min_ref[0, j] = jnp.min(mins[j], axis=0)
-        max_ref[0, j] = jnp.max(maxs[j], axis=0)
 
-
-@functools.partial(
-    jax.jit, static_argnames=("wp", "wm", "n", "tb", "interpret")
-)
 def minmax_scan_tiles(
     ptiles: jax.Array,
     mtiles: jax.Array,
@@ -530,49 +333,14 @@ def minmax_scan_tiles(
     wp: int,
     wm: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """-> (counts uint32 (k,), min partials, max partials) — combine with
-    :func:`finalize_minmax`."""
-    _, b1, lanes = ptiles.shape
-    assert lanes == LANES
-    assert mtiles.shape[1] == b1, "predicate/measure columns must share n"
-    k = int(keys.shape[0])
-    if not (1 <= k <= MAX_KEYS):
-        raise ValueError(f"aggregate scan supports 1 <= k <= {MAX_KEYS}, got {k}")
-    tb = _agg_tb(wp, wm, k, b1, tb)
-    grid = (b1 // tb,)
-    keys2 = keys.astype(jnp.uint32).reshape(k, 1)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    cnt, mins, maxs = pl.pallas_call(
-        functools.partial(_minmax_kernel, wp=wp, wm=wm, k=k, tb=tb, n=n),
-        out_shape=(
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((k, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (wp, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (wm, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )(off, keys2, ptiles, mtiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    return counts, mins, maxs
+    """-> (counts uint32 (k,), min partials, max partials), the partials
+    (1, k, LANES) int32 — combine with :func:`finalize_minmax`."""
+    assert mtiles.shape[1] == ptiles.shape[1], "predicate/measure columns must share n"
+    keys = jnp.asarray(keys, jnp.uint32)
+    _check_keys(int(keys.shape[0]))
+    return _minmax_impl(ptiles, mtiles, keys, block_offset, wp=wp, wm=wm, n=n)
 
 
 def finalize_minmax(mins, maxs, counts, wm: int):
@@ -588,23 +356,19 @@ def finalize_minmax(mins, maxs, counts, wm: int):
     return mn, mx
 
 
-def minmax_scan_device(
-    pdev: DeviceColumn,
-    mdev: DeviceColumn,
-    keys,
-    tb: int | None = None,
-    interpret: bool = False,
-):
-    """Per-key MIN/MAX of the measure column in one fused pass ->
-    (mins uint32 (k,), maxs uint32 (k,), counts uint32 (k,))."""
+def _check_same_n(pdev: DeviceColumn, mdev: DeviceColumn) -> None:
     if pdev.n != mdev.n:
         raise ValueError(
             f"column lengths differ: predicate n={pdev.n}, measure n={mdev.n}"
         )
-    keys = jnp.asarray(keys, jnp.uint32)
+
+
+def minmax_scan_device(pdev: DeviceColumn, mdev: DeviceColumn, keys):
+    """Per-key MIN/MAX of the measure column in one fused pass ->
+    (mins uint32 (k,), maxs uint32 (k,), counts uint32 (k,))."""
+    _check_same_n(pdev, mdev)
     counts, mins, maxs = minmax_scan_tiles(
-        pdev.tiles, mdev.tiles, keys, pdev.width, mdev.width, pdev.n,
-        tb=tb, interpret=interpret,
+        pdev.tiles, mdev.tiles, keys, pdev.width, mdev.width, pdev.n
     )
     mn, mx = finalize_minmax(mins, maxs, counts, mdev.width)
     return mn, mx, counts
@@ -618,11 +382,7 @@ def finalize_sums(slo, shi) -> np.ndarray:
 
 
 def aggregate_scan_device(
-    pdev: DeviceColumn,
-    mdev: DeviceColumn,
-    keys,
-    tb: int | None = None,
-    interpret: bool = False,
+    pdev: DeviceColumn, mdev: DeviceColumn, keys
 ) -> tuple[np.ndarray, jax.Array]:
     """GROUP-BY-key aggregate over two packed columns in one fused pass:
     -> (sums uint64 numpy (k,), counts uint32 (k,)).
@@ -632,15 +392,12 @@ def aggregate_scan_device(
     Columns must have the same length n.
 
     Dispatch (counted static cost, :func:`pick_aggregate_tier`): past the
-    crossover the bit-plane tier replaces the select-accumulate kernel —
+    crossover the bit-plane tier replaces the select-accumulate tier —
     concrete key sets get exact AND-DAG pricing.  The key inspection
     happens BEFORE any jnp conversion (inside a jit trace jnp.asarray
     stages numpy constants into Tracers — the dispatch-demotion trap,
     see scan.shared_scan_device)."""
-    if pdev.n != mdev.n:
-        raise ValueError(
-            f"column lengths differ: predicate n={pdev.n}, measure n={mdev.n}"
-        )
+    _check_same_n(pdev, mdev)
     traced = isinstance(keys, jax.core.Tracer)
     tier = pick_aggregate_tier(pdev.width, mdev.width, keys)
     if tier == "bitplane" and not traced:
@@ -655,8 +412,7 @@ def aggregate_scan_device(
             keys=keys if traced else jnp.asarray(np.asarray(keys, np.uint32)),
         )
     counts, slo, shi = fn(
-        pdev.tiles, mdev.tiles, wp=pdev.width, wm=mdev.width, n=pdev.n,
-        tb=tb, interpret=interpret,
+        pdev.tiles, mdev.tiles, wp=pdev.width, wm=mdev.width, n=pdev.n
     )
     return finalize_sums(slo, shi), counts
 
@@ -668,82 +424,43 @@ def aggregate_scan_device(
 # ---------------------------------------------------------------------------
 
 
-def _masked_agg_kernel(
-    m_ref, bits_ref, cnt_ref, slo_ref, shi_ref, *, wm, tb, n, split
-):
-    """One grid step: sum parts + count of measure values whose match bit
-    is set.  Relies on the library-wide tail invariant — bits at i >= n
-    are zero in every kernel/composition output — so no validity mask is
+@functools.partial(jax.jit, static_argnames=("wm",))
+def _masked_agg_impl(mtiles, bits, *, wm):
+    """Sum parts + count of measure values whose match bit is set.
+    Relies on the library-wide tail invariant — bits at i >= n are zero
+    in every tier/composition output — so no validity mask is
     recomputed here."""
-    bw = bits_ref[...]
-    cnt_ref[0, 0] = jnp.sum(
-        jax.lax.population_count(bw).astype(jnp.int32), axis=0
-    )
-    lacc = jnp.zeros((tb, LANES), jnp.int32)
-    hacc = jnp.zeros((tb, LANES), jnp.int32) if split else None
-    zero = jnp.int32(0)
+    split = wm > 16
+    mwords = word_rows(mtiles)
     one = jnp.uint32(1)
+    zero = jnp.int32(0)
+    lacc = jnp.int32(0)
+    hacc = jnp.int32(0)
     for r in range(BLOCK_VALUES):
-        m = _unpack_value_at(m_ref, wm, r)
-        sel = ((bw >> jnp.uint32(r)) & one) == one
+        m = unpack_value_at(mwords, wm, r)
+        sel = ((bits >> jnp.uint32(r)) & one) == one
         if split:
             lacc = lacc + jnp.where(sel, (m & jnp.uint32(0xFFFF)).astype(jnp.int32), zero)
             hacc = hacc + jnp.where(sel, (m >> jnp.uint32(16)).astype(jnp.int32), zero)
         else:
             lacc = lacc + jnp.where(sel, m.astype(jnp.int32), zero)
-    slo_ref[0, 0] = jnp.sum(lacc, axis=0)
-    shi_ref[0, 0] = (
-        jnp.sum(hacc, axis=0) if split else jnp.zeros((LANES,), jnp.int32)
-    )
+    hacc = jnp.broadcast_to(hacc, bits.shape)
+    return popcount_sum(bits), _stack_partials([lacc]), _stack_partials([hacc])
 
 
-@functools.partial(jax.jit, static_argnames=("wm", "n", "tb", "interpret"))
 def masked_aggregate_tiles(
-    mtiles: jax.Array,
-    bits: jax.Array,
-    wm: int,
-    n: int,
-    tb: int | None = None,
-    interpret: bool = False,
+    mtiles: jax.Array, bits: jax.Array, wm: int
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
     """-> (count uint32, sum_lo partials, sum_hi partials) of the measure
     column over the set bits of a device-layout (B1, 128) bitvector row.
     Finalize the sums with :func:`finalize_sums` (they are (steps, 1,
     LANES) int32 partials with the same provable headroom as the keyed
     aggregate)."""
-    _, b1, lanes = mtiles.shape
-    assert lanes == LANES
+    b1 = mtiles.shape[1]
     assert bits.shape == (b1, LANES), (
         "bits must be the device-layout row matching the measure column"
     )
-    split = wm > 16
-    tb = _agg_tb(wm, 0, 2, b1, tb)
-    grid = (b1 // tb,)
-    cnt, slo, shi = pl.pallas_call(
-        functools.partial(
-            _masked_agg_kernel, wm=wm, tb=tb, n=n, split=split
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((b1 // tb, 1, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((b1 // tb, 1, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((b1 // tb, 1, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (wm, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec((tb, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, 1, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )(mtiles, bits)
-    count = jnp.sum(cnt.astype(jnp.uint32))
-    return count, slo, shi
+    return _masked_agg_impl(mtiles, bits, wm=wm)
 
 
 def bits_from_canonical(words: jax.Array, b1: int) -> jax.Array:
@@ -757,19 +474,13 @@ def bits_from_canonical(words: jax.Array, b1: int) -> jax.Array:
 
 
 def masked_aggregate_device(
-    mdev: DeviceColumn,
-    bits: jax.Array,
-    tb: int | None = None,
-    interpret: bool = False,
+    mdev: DeviceColumn, bits: jax.Array
 ) -> tuple[np.ndarray, jax.Array]:
     """SUM + COUNT of a measure column over an arbitrary match bitvector
     (canonical words, e.g. from ``query.evaluate``): -> (sum uint64
     scalar numpy, count uint32)."""
-    b1 = mdev.tiles.shape[1]
-    row = bits_from_canonical(bits, b1)
-    count, slo, shi = masked_aggregate_tiles(
-        mdev.tiles, row, mdev.width, mdev.n, tb=tb, interpret=interpret
-    )
+    row = bits_from_canonical(bits, mdev.tiles.shape[1])
+    count, slo, shi = masked_aggregate_tiles(mdev.tiles, row, mdev.width)
     return finalize_sums(slo, shi)[0], count
 
 

@@ -7,24 +7,23 @@ columns of the same table, evaluated in ONE fused pass — one bitvector
 and one count, no per-column bitvector materialization and no second
 pass over n.  Composing the same query from single-column kernels costs
 m bitvector writes + (m-1) AND passes of n/8 bytes each; fusing removes
-all of it, so the kernel reads ``sum(width_c)/8`` bytes per value and
+all of it, so the pass reads ``sum(width_c)/8`` bytes per value and
 writes 1/8.
 
 Design notes:
 
 - Columns of the same n share the SAME block layout (layout.padded_blocks
-  depends only on n), so one grid step sees the aligned (width_c, tb, 128)
-  tile of every column and no cross-column index arithmetic exists.
+  depends only on n), so block row b of every column holds the same
+  values and no cross-column index arithmetic exists.
 - Equality predicates are the degenerate range [key, key+1); a range is
   ONE unsigned compare per (value, column) via the subtract trick
-  (``v - lo < hi - lo``), so the kernel is m*(unpack + ~3) vector ops per
-  value — HBM-bound for small m at common widths.
-- Match bits accumulate per COLUMN in uint32 words (the measured-fast
-  idiom; chaining i1 vregs lowers poorly in Mosaic) and the conjunction
+  (``v - lo < hi - lo``), so the body is m*(unpack + ~3) ops per value —
+  memory-bound for small m at common widths.
+- Match bits accumulate per COLUMN in uint32 words and the conjunction
   is m-1 word ANDs per 32 values — noise.
 - Per-column IN-list / arbitrary predicates compose on top: run the
-  member/shared tiers per column and AND the (B1, 128) rows in XLA; this
-  kernel is the fast path for the dominant range/equality case.
+  member/shared tiers per column and AND the (B1, 128) rows; this tier is
+  the fast path for the dominant range/equality case.
 """
 from __future__ import annotations
 
@@ -32,67 +31,45 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from shared_simd_scan_tpu.layout import (
-    LANES,
-    DeviceColumn,
-)
-from shared_simd_scan_tpu.ops.scan import (
-    _pick_tb,
-    _store_rows_tail_masked,
-    bits_to_canonical,
-)
-from shared_simd_scan_tpu.ops.unpack import _unpack_block_values
+from shared_simd_scan_tpu.layout import LANES, BLOCK_VALUES, DeviceColumn
+from shared_simd_scan_tpu.ops.driver import popcount_sum, valid_word, word_rows
+from shared_simd_scan_tpu.ops.scan import bits_to_canonical
+from shared_simd_scan_tpu.ops.unpack import unpack_value_at
 
 MAX_COLUMNS = 8
 
 
-def _conj_range_kernel(off_ref, lohi_ref, *refs, widths, tb, n):
-    """One grid step: AND of per-column range matches over a (tb, 128)
-    block tile -> one bitvector row + count partial.
-
-    ``refs`` = m column tile refs, then bits_ref, cnt_ref.  lohi is the
-    (m, 2) SMEM predicate table."""
-    m = len(widths)
-    in_refs, bits_ref, cnt_ref = refs[:m], refs[m], refs[m + 1]
-
+def _conj_range_row(cols_words, lows, highs, *, widths):
+    """AND of per-column range matches -> one match row.  Inverted bounds
+    (hi < lo) are an EMPTY range, not a wrapped one — a scalar clamp."""
     acc = None
-    for c, width in enumerate(widths):
-        col = jnp.zeros((tb, LANES), jnp.uint32)
-        lo = lohi_ref[c, 0]
-        hi = lohi_ref[c, 1]
-        # inverted bounds (hi < lo) are an EMPTY range, not a wrapped one
-        # — scalar clamp, free
+    for c, (words, width) in enumerate(zip(cols_words, widths)):
+        lo, hi = lows[c], highs[c]
         span = jnp.where(hi > lo, hi - lo, jnp.uint32(0))
-        for r, v in _unpack_block_values(in_refs[c], width):
-            inside = (v - lo) < span
+        col = jnp.uint32(0)
+        for r in range(BLOCK_VALUES):
+            inside = (unpack_value_at(words, width, r) - lo) < span
             col = col | jnp.where(inside, jnp.uint32(1 << r), jnp.uint32(0))
         acc = col if acc is None else acc & col
+    return acc
 
-    _store_rows_tail_masked(
-        off_ref, pl.program_id(0), tb, n, [acc], bits_ref, cnt_ref
+
+@functools.partial(jax.jit, static_argnames=("widths", "n"))
+def _conj_impl(tiles, lows, highs, block_offset, *, widths, n):
+    row = _conj_range_row(
+        [word_rows(t) for t in tiles], lows, highs, widths=widths
     )
+    row = row & valid_word(0, tiles[0].shape[1:], n, block_offset)
+    return row, popcount_sum(row)
 
 
-def _conj_tb(widths: tuple[int, ...], b1: int, tb: int | None) -> int:
-    # double-buffered input tiles for every column + the per-column match
-    # accumulator + transients, x512 B per sublane
-    per_tb = 512 * (2 * sum(widths) + len(widths) + 8)
-    tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-    return _pick_tb(b1, tb if tb is not None else tb_auto)
-
-
-@functools.partial(jax.jit, static_argnames=("widths", "n", "tb", "interpret"))
 def conj_range_scan_tiles(
     tiles: tuple[jax.Array, ...],
     lows: jax.Array,
     highs: jax.Array,
     widths: tuple[int, ...],
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
 ) -> tuple[jax.Array, jax.Array]:
     """AND of m half-open ranges [lo_c, hi_c), one per column, fused.
@@ -110,44 +87,14 @@ def conj_range_scan_tiles(
         assert t.shape[1] == b1 and t.shape[2] == LANES, (
             "conjunction columns must share n (same B1 block layout)"
         )
-    tb = _conj_tb(widths, b1, tb)
-    grid = (b1 // tb,)
-    lohi = jnp.stack(
-        [lows.astype(jnp.uint32), highs.astype(jnp.uint32)], axis=1
-    )  # (m, 2)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    bits, cnt = pl.pallas_call(
-        functools.partial(_conj_range_kernel, widths=widths, tb=tb, n=n),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, b1, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, 1, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((m, 2), lambda i: (0, 0), memory_space=pltpu.SMEM),
-        ] + [
-            pl.BlockSpec(
-                (w, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            )
-            for w in widths
-        ],
-        out_specs=(
-            pl.BlockSpec((1, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )(off, lohi, *tiles)
-    return bits[0], jnp.sum(cnt.astype(jnp.uint32))
+    return _conj_impl(
+        tuple(tiles), jnp.asarray(lows, jnp.uint32),
+        jnp.asarray(highs, jnp.uint32), block_offset,
+        widths=tuple(widths), n=n,
+    )
 
 
-def conj_range_scan_device(
-    devs,
-    lows,
-    highs,
-    tb: int | None = None,
-    interpret: bool = False,
-) -> tuple[jax.Array, jax.Array]:
+def conj_range_scan_device(devs, lows, highs) -> tuple[jax.Array, jax.Array]:
     """Conjunction of range predicates over same-table DeviceColumns ->
     ((W,) canonical bitvector words, scalar match count)."""
     devs = list(devs)
@@ -158,29 +105,17 @@ def conj_range_scan_device(
                 f"conjunction columns must share n, got {d.n} != {n}"
             )
     bits, count = conj_range_scan_tiles(
-        tuple(d.tiles for d in devs),
-        jnp.asarray(lows, jnp.uint32),
-        jnp.asarray(highs, jnp.uint32),
-        tuple(d.width for d in devs),
-        n,
-        tb=tb,
-        interpret=interpret,
+        tuple(d.tiles for d in devs), lows, highs,
+        tuple(d.width for d in devs), n,
     )
     return bits_to_canonical(bits, n), count
 
 
-def conj_eq_scan_device(
-    devs,
-    keys,
-    tb: int | None = None,
-    interpret: bool = False,
-) -> tuple[jax.Array, jax.Array]:
+def conj_eq_scan_device(devs, keys) -> tuple[jax.Array, jax.Array]:
     """Conjunction of EQUALITY predicates (one key per column): the
     degenerate ranges [key_c, key_c + 1)."""
     keys = jnp.asarray(keys, jnp.uint32)
-    return conj_range_scan_device(
-        devs, keys, keys + jnp.uint32(1), tb=tb, interpret=interpret
-    )
+    return conj_range_scan_device(devs, keys, keys + jnp.uint32(1))
 
 
 __all__ = [

@@ -3,38 +3,33 @@
 Capability extension over the reference (which only offers per-predicate
 shared scans, src/simd_scan_shared.cpp): the common DB predicate
 ``value IN (k_0 .. k_{K-1})`` needs a single match bitvector, not K of
-them.  Fusing the OR into the scan kernel cuts the write traffic from K
+them.  Fusing the OR into the scan cuts the write traffic from K
 bitvector rows to ONE — at K=8/width 9 that is 2.125 -> 1.25 bytes per
-value of total HBM traffic, so an IN-list runs ~1.7x faster than even the
-roofline-saturating shared scan, and the gap grows linearly with K.
+value of total memory traffic, and the gap grows linearly with K.
 
 Tiers (static dispatch on the concrete key set, mirroring
 :func:`shared_simd_scan_tpu.ops.scan.shared_scan_device`):
 
 - consecutive run lo..lo+K-1: a single unsigned-subtract range compare per
-  value (``(v - lo) < K``) — reuses the range kernel
+  value (``(v - lo) < K``) — reuses the range tier
   (:func:`scan.range_scan_tiles` with one [lo, lo+K) predicate);
 - clustered concrete keys: 32-aligned *window popmasks* — per window, one
   variable shift builds the value's one-hot mask (as in the interval /
-  windowed kernels) and one AND against the window's 32-bit membership
-  mask tests all its keys at once; cost ~5 vector ops per (value, window)
+  windowed tiers) and one AND against the window's 32-bit membership
+  mask tests all its keys at once; cost ~5 ops per (value, window)
   regardless of how many keys the window holds;
 - spread CONCRETE keys, any k: the *static OR-tree* — the whole key set
   collapses at trace time into a Shannon-factored AND/OR/NOT DAG over
   the block's bit planes (scan._member_or_tree), memoized so common
-  sub-patterns are computed once; its counted cost undercuts every
-  other tier at every measured k (see member_ortree_cost);
+  sub-patterns are computed once (priced by member_ortree_cost);
 - spread TRACED keys, small k: an OR of equality compares (~2 ops per
   (value, key)) or the bit-sliced XOR+AND plane fold (~0.6);
 - spread TRACED keys, large k (>= ~40 at width 9, width <= 12): a
-  *domain bitmap* — the whole key set as a 2^width-bit table in SMEM,
-  per value a select-tree word lookup + one-hot bit test, cost FLAT
-  in k.
+  *domain bitmap* — the whole key set as a 2^width-bit table, per value
+  one table-word lookup + one-hot bit test, cost FLAT in k.
 
-Key sets too large to unroll in one kernel body ride a second grid
-dimension in chunks (of 32 keys / 32 windows); each chunk emits a partial
-member row and the OR + popcount runs outside in XLA — output traffic is
-``nchunks`` rows instead of K.
+Every tier body returns the single member row; the XLA driver
+(ops/driver.py) masks the tail and counts it.
 """
 from __future__ import annotations
 
@@ -43,32 +38,20 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from shared_simd_scan_tpu.layout import (
-    BLOCK_VALUES,
-    LANES,
-    DeviceColumn,
-)
+from shared_simd_scan_tpu.layout import BLOCK_VALUES, DeviceColumn
+from shared_simd_scan_tpu.ops import driver
 from shared_simd_scan_tpu.ops.scan import (
     _member_or_tree,
     _onehot32,
-    _pick_tb,
+    _plane_fold,
     _static_dag_liveness,
     _static_dag_ops,
-    _store_rows_tail_masked,
-    _transpose_bitplanes,
+    bitplanes,
     bits_to_canonical,
     range_scan_tiles,
-    shift_saturates,
 )
-from shared_simd_scan_tpu.ops.unpack import _unpack_block_values
-
-# Unroll caps per kernel body: keys for the compare kernel, windows for the
-# popmask kernel.  Past these the chunked (partial-row) variants take over.
-_MAX_COMPARE_KEYS = 32
-_MAX_WINDOWS = 32
+from shared_simd_scan_tpu.ops.unpack import unpack_value_at
 
 
 def member_window_plan(keys) -> tuple[list[int], list[int]]:
@@ -86,142 +69,136 @@ def member_window_plan(keys) -> tuple[list[int], list[int]]:
     return bases, [pops[b] for b in bases]
 
 
-def _member_compare_kernel(
-    off_ref, keys_ref, in_ref, bits_ref, cnt_ref, *, width, k, tb, n
-):
-    """Single grid dim: OR of k equality compares -> one member row.
-
-    Works with traced keys (k is static from the operand shape).  All
-    accumulation stays in uint32 (`acc |= where(cmp, bit, 0)` per term,
-    the same form as the shared-scan kernels) — chaining i1 mask vregs
-    (`hit |= cmp`) lowers poorly in Mosaic."""
-    i = pl.program_id(0)
-    acc = jnp.zeros((tb, LANES), jnp.uint32)
-    for r, v in _unpack_block_values(in_ref, width):
-        bit = jnp.uint32(1 << r)
-        for j in range(k):
-            acc = acc | jnp.where(v == keys_ref[j, 0], bit, jnp.uint32(0))
-    _store_rows_tail_masked(off_ref, i, tb, n, [acc], bits_ref, cnt_ref)
-
-
-def _member_window_kernel(
-    off_ref, win_ref, in_ref, bits_ref, cnt_ref, *, width, nwin, tb, n, gateless
-):
-    """Single grid dim: per value, OR over windows of
-    ``(1 << (v - base_w)) & popmask_w != 0`` -> one member row."""
-    i = pl.program_id(0)
-    acc = jnp.zeros((tb, LANES), jnp.uint32)
-    for r, v in _unpack_block_values(in_ref, width):
-        bit = jnp.uint32(1 << r)
-        for w in range(nwin):
-            m = _onehot32(v - win_ref[w, 0], gateless) & win_ref[w, 1]
-            acc = acc | jnp.where(m != jnp.uint32(0), bit, jnp.uint32(0))
-    _store_rows_tail_masked(off_ref, i, tb, n, [acc], bits_ref, cnt_ref)
-
-
-def _member_chunked_compare_kernel(
-    off_ref, keys_ref, in_ref, bits_ref, cnt_ref, scratch, *, width, tb, n, krows
-):
-    """Grid (i, c): key chunk c ORs its krows compares into partial row c.
-
-    Values are unpacked once per block tile into VMEM scratch on the first
-    chunk (same structure as scan._shared_scan_chunked_kernel)."""
-    i = pl.program_id(0)
-    c = pl.program_id(1)
-
-    @pl.when(c == 0)
-    def _fill():
-        for r, v in _unpack_block_values(in_ref, width):
-            scratch[r] = v
-
-    acc = jnp.zeros((tb, LANES), jnp.uint32)
+def _or_values(words, width, hit):
+    """One member row: bit r set iff ``hit(v_r)`` for value r."""
+    acc = jnp.uint32(0)
     for r in range(BLOCK_VALUES):
-        v = scratch[r]
-        bit = jnp.uint32(1 << r)
-        for j in range(krows):
-            acc = acc | jnp.where(v == keys_ref[j, 0], bit, jnp.uint32(0))
-    _store_rows_tail_masked(off_ref, i, tb, n, [acc], bits_ref, cnt_ref)
+        v = unpack_value_at(words, width, r)
+        acc = acc | jnp.where(hit(v), jnp.uint32(1 << r), jnp.uint32(0))
+    return acc
 
 
-def _member_chunked_window_kernel(
-    off_ref, win_ref, in_ref, bits_ref, cnt_ref, scratch, *,
-    width, tb, n, wrows, gateless,
-):
-    """Grid (i, c): window chunk c (wrows windows) -> partial row c."""
-    i = pl.program_id(0)
-    c = pl.program_id(1)
+def _member_compare_row(words, keys, *, width, k):
+    """OR of k equality compares; keys may be traced."""
+    ks = [keys[j] for j in range(k)]
 
-    @pl.when(c == 0)
-    def _fill():
-        for r, v in _unpack_block_values(in_ref, width):
-            scratch[r] = v
+    def hit(v):
+        m = v == ks[0]
+        for kj in ks[1:]:
+            m = m | (v == kj)
+        return m
 
-    acc = jnp.zeros((tb, LANES), jnp.uint32)
-    for r in range(BLOCK_VALUES):
-        v = scratch[r]
-        bit = jnp.uint32(1 << r)
-        for w in range(wrows):
-            m = _onehot32(v - win_ref[w, 0], gateless) & win_ref[w, 1]
-            acc = acc | jnp.where(m != jnp.uint32(0), bit, jnp.uint32(0))
-    _store_rows_tail_masked(off_ref, i, tb, n, [acc], bits_ref, cnt_ref)
+    return [_or_values(words, width, hit)]
 
 
-def _member_domain_kernel(
-    off_ref, tab_ref, in_ref, bits_ref, cnt_ref, *, width, tb, n
-):
-    """Single grid dim: domain-bitmap membership -> one member row.
+def _member_window_row(words, bases, pops, *, width, nwin):
+    """Per value, OR over windows of ``(1 << (v - base_w)) & popmask_w``."""
+    bs = [bases[w] for w in range(nwin)]
+    ps = [pops[w] for w in range(nwin)]
 
-    The whole key set is a 2^width-bit bitmap ``T`` ((nwords, 1) uint32 in
-    SMEM, nwords = 2^width/32); per value the word ``T[v >> 5]`` is picked
-    by a select tree over the high bits (nwords - 1 vector selects — no
-    gather exists in Mosaic) and bit ``v & 31`` tested with an always-
-    in-range shift (< 32, so no saturation semantics involved).  Cost is
-    FLAT in k: ~(3*(width-5) + nwords + 7) vector ops per value — the
-    only member tier whose per-value cost does not grow with the key
-    count, so it wins for spread key sets past k ~= 40 at width 9."""
-    i = pl.program_id(0)
-    nwords = max(1, (1 << width) // 32)
-    one = jnp.uint32(1)
-    acc = jnp.zeros((tb, LANES), jnp.uint32)
-    for r, v in _unpack_block_values(in_ref, width):
-        if nwords == 1:
-            word = tab_ref[0, 0]
-        else:
-            hi = v >> jnp.uint32(5)
-            preds = [
-                ((hi >> jnp.uint32(j)) & one) != jnp.uint32(0)
-                for j in range(width - 5)
-            ]
-            nodes = [tab_ref[t, 0] for t in range(nwords)]
-            for p in preds:
-                nodes = [
-                    jnp.where(p, nodes[2 * t + 1], nodes[2 * t])
-                    for t in range(len(nodes) // 2)
-                ]
-            word = nodes[0]
-        m = (one << (v & jnp.uint32(31))) & word
-        acc = acc | jnp.where(
-            m != jnp.uint32(0), jnp.uint32(1 << r), jnp.uint32(0)
-        )
-    _store_rows_tail_masked(off_ref, i, tb, n, [acc], bits_ref, cnt_ref)
+    def hit(v):
+        m = jnp.uint32(0)
+        for b, p in zip(bs, ps):
+            m = m | (_onehot32(v - b, True) & p)
+        return m != jnp.uint32(0)
+
+    return [_or_values(words, width, hit)]
 
 
-@functools.partial(jax.jit, static_argnames=("width", "n", "tb", "interpret"))
-def _member_domain_tiles(tiles, table, width, n, tb, interpret, block_offset):
-    nwords = int(table.shape[0])
-    bits, cnt = _member_call(
-        lambda tbv: functools.partial(
-            _member_domain_kernel, width=width, tb=tbv, n=n
-        ),
-        table, nwords, tiles, width, n, tb, interpret, block_offset,
+def _member_domain_row(words, table, *, width):
+    """Domain-bitmap membership: word ``T[v >> 5]`` of the 2^width-bit
+    table, bit ``v & 31`` tested with an always-in-range shift.  Cost is
+    FLAT in k — the only member tier whose per-value cost does not grow
+    with the key count."""
+    table = table.reshape(-1)
+
+    def hit(v):
+        word = jnp.take(table, v >> jnp.uint32(5), mode="clip")
+        return ((word >> (v & jnp.uint32(31))) & jnp.uint32(1)) != jnp.uint32(0)
+
+    return [_or_values(words, width, hit)]
+
+
+def _member_ortree_row(words, *, width, patterns):
+    """Shannon-factored static OR-tree over the block's bit planes (see
+    scan._member_or_tree); all-ones when the set is the whole domain."""
+    row = _member_or_tree(bitplanes(words, width), 0, width, patterns, {})
+    return [jnp.full_like(words[0], 0xFFFFFFFF) if row is None else row]
+
+
+# Keys folded per unrolled body; larger traced sets loop over key chunks
+# (one compiled chunk instead of a body that grows with k).
+_FOLD_CHUNK = 32
+
+
+def _member_bitsliced_row(words, keys, *, width, k):
+    """OR of the k bit-sliced key matches (XOR+AND plane folds); keys may
+    be traced, out-of-domain keys match nothing."""
+    planes = bitplanes(words, width)
+
+    def fold(ks, count):
+        acc = None
+        for j in range(count):
+            m = _plane_fold(planes, ks[j], width)
+            acc = m if acc is None else acc | m
+        return acc
+
+    if k <= _FOLD_CHUNK:
+        return [fold(keys, k)]
+    nchunks = -(-k // _FOLD_CHUNK)
+    pad = nchunks * _FOLD_CHUNK - k
+    # all-ones padding keys are out of domain and match nothing
+    keys = jnp.concatenate([keys, jnp.full((pad,), 0xFFFFFFFF, jnp.uint32)])
+
+    def body(c, acc):
+        ks = jax.lax.dynamic_slice(keys, (c * _FOLD_CHUNK,), (_FOLD_CHUNK,))
+        return acc | fold(ks, _FOLD_CHUNK)
+
+    zero = jnp.zeros_like(planes[0])
+    return [jax.lax.fori_loop(0, nchunks, body, zero)]
+
+
+def _one_row(body, tiles, n, operands, block_offset):
+    bits, counts = driver.scan_xla(
+        body, tiles, n, *operands, block_offset=block_offset
     )
-    return bits[0], jnp.sum(cnt.astype(jnp.uint32))
+    return bits[0], counts[0]
+
+
+@functools.partial(jax.jit, static_argnames=("width", "n"))
+def _member_compare_tiles(tiles, keys, block_offset, *, width, n):
+    body = functools.partial(_member_compare_row, width=width, k=keys.shape[0])
+    return _one_row(body, tiles, n, (keys,), block_offset)
+
+
+@functools.partial(jax.jit, static_argnames=("width", "n"))
+def _member_window_tiles(tiles, bases, pops, block_offset, *, width, n):
+    body = functools.partial(_member_window_row, width=width, nwin=bases.shape[0])
+    return _one_row(body, tiles, n, (bases, pops), block_offset)
+
+
+@functools.partial(jax.jit, static_argnames=("width", "n"))
+def _member_domain_tiles(tiles, table, block_offset, *, width, n):
+    body = functools.partial(_member_domain_row, width=width)
+    return _one_row(body, tiles, n, (table,), block_offset)
+
+
+@functools.partial(jax.jit, static_argnames=("width", "n", "patterns"))
+def _member_ortree_tiles(tiles, block_offset, *, width, n, patterns):
+    body = functools.partial(_member_ortree_row, width=width, patterns=patterns)
+    return _one_row(body, tiles, n, (), block_offset)
+
+
+@functools.partial(jax.jit, static_argnames=("width", "n"))
+def _member_bitsliced_tiles(tiles, keys, block_offset, *, width, n):
+    body = functools.partial(_member_bitsliced_row, width=width, k=keys.shape[0])
+    return _one_row(body, tiles, n, (keys,), block_offset)
 
 
 def domain_table(keys, width: int) -> jax.Array:
     """Key set -> (2^width/32, 1) uint32 membership bitmap (bit ``v & 31``
     of word ``v >> 5`` set iff v is in the set).  Works on traced keys:
-    the OR-scatter is a tiny (nwords, k) compare + OR-reduce in XLA, so
+    the OR-scatter is a tiny (nwords, k) compare + OR-reduce, so
     duplicates merge correctly either way."""
     nwords = max(1, (1 << width) // 32)
     keys = jnp.asarray(keys, jnp.uint32)
@@ -236,76 +213,27 @@ def domain_table(keys, width: int) -> jax.Array:
 
 
 def _domain_member_cost(width: int) -> int:
-    """Static cost (quarter-ops-per-value) of the domain-bitmap kernel:
-    unpack ~14, high-bit predicates 3*(width-5), select tree nwords-1,
-    low-bit test + accumulate ~5.  Flat in k.  Widths past 12 are priced
-    out entirely: a >127-select unroll is compile-hostile and the cost
-    rule would only pick it at key counts the other tiers handle."""
+    """Static cost (quarter-ops-per-value) of the domain-bitmap tier:
+    unpack ~14, high-bit predicates 3*(width-5), table-word select
+    nwords-1, low-bit test + accumulate ~5.  Flat in k.  Widths past 12
+    are priced out entirely (the table outgrows what the other tiers
+    need at the key counts where it would win)."""
     if width > 12:
         return 1 << 30
     nwords = max(1, (1 << width) // 32)
     return 14 + 4 * (3 * max(0, width - 5) + (nwords - 1) + 5)
 
 
-def _member_ortree_kernel(
-    off_ref, dummy_ref, in_ref, bits_ref, cnt_ref, *, width, tb, n, patterns
-):
-    """Single grid dim: Shannon-factored static OR-tree over the block's
-    bit planes -> one member row.
-
-    The CONCRETE key set collapses into a pure AND/OR/NOT DAG over the
-    ``width`` bit planes (scan._member_or_tree): patterns are grouped by
-    their high-span projection, each group pays one memoized high-span
-    combo AND one recursive low-span OR-tree, so common sub-patterns are
-    computed once for the WHOLE set.  Counted cost for spread keys at
-    width 9: ~58 ops per 32 values at k=8 up to ~360 at k=256 — below
-    every other tier at every k (domain bitmap: ~410, compare: 32*k).
-    ``patterns`` must be in-domain, deduplicated and sorted (the
-    dispatcher guarantees this so the jit cache keys canonically)."""
-    i = pl.program_id(0)
-    vs = [v for _, v in _unpack_block_values(in_ref, width)]
-    planes = _transpose_bitplanes(vs, width)
-    row = _member_or_tree(planes, 0, width, patterns, {})
-    if row is None:
-        # every domain value is in the set: all-match (tail still masked)
-        row = jnp.full((tb, LANES), 0xFFFFFFFF, jnp.uint32)
-    _store_rows_tail_masked(off_ref, i, tb, n, [row], bits_ref, cnt_ref)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("width", "n", "tb", "interpret", "patterns")
-)
-def _member_ortree_tiles(tiles, width, n, tb, interpret, patterns, block_offset):
-    dummy = jnp.zeros((1, 1), jnp.uint32)
-    live = _static_dag_liveness(width, patterns, member=True)
-    bits, cnt = _member_call(
-        lambda tbv: functools.partial(
-            _member_ortree_kernel, width=width, tb=tbv, n=n, patterns=patterns
-        ),
-        dummy, 1, tiles, width, n, tb, interpret, block_offset,
-        extra_rows=width + 32 + live,
-        # big straight-line OR-tree bodies schedule better on smaller
-        # tiles: measured v5e 512 MiB k=100 sweep auto(176)/64/96/128/
-        # 192/256 = 2.03/1.74/1.73/1.84/2.03/2.17 ms — tb=96 lands
-        # exactly on the fitted bound (was x1.18 at the old auto)
-        tb_cap=96,
-    )
-    return bits[0], jnp.sum(cnt.astype(jnp.uint32))
-
-
 # DAG caps for the OR-tree tier; sets past them fall through to the
-# flat-cost domain bitmap / chunked tiers by the dispatch rule.
-# _ORTREE_MAX_OPS bounds kernel-body size (compile time);
-# _ORTREE_MAX_LIVE bounds MEASURED peak register liveness (the memoized
-# combo vectors stay live across the whole OR accumulation — a flat
-# ops//8 proxy under-counted it, e.g. 169 live vecs at width 31, k=100)
-# so the VMEM tile budget never collapses below a useful tb.
+# flat-cost domain bitmap / compare tiers by the dispatch rule.
+# _ORTREE_MAX_OPS bounds body size (compile time); _ORTREE_MAX_LIVE bounds
+# the DAG's peak number of simultaneously live words.
 _ORTREE_MAX_OPS = 4096
 _ORTREE_MAX_LIVE = 256
 
 
 def member_ortree_cost(width: int, arr) -> int:
-    """Static cost (quarter-ops-per-value) of the OR-tree member kernel
+    """Static cost (quarter-ops-per-value) of the OR-tree member tier
     for THIS key set: fixed unpack + pruned transpose (~40) plus the
     exact counted AND/OR/NOT ops of the factored DAG.  Sets whose DAG
     exceeds the ops or liveness caps are priced out (1 << 30)."""
@@ -318,222 +246,11 @@ def member_ortree_cost(width: int, arr) -> int:
     return 40 + -(-ops // 8)
 
 
-def _member_bitsliced_kernel(
-    off_ref, keys_ref, in_ref, bits_ref, cnt_ref, planes, *,
-    width, tb, n, krows, nchunks,
-):
-    """Grid (i[, c]): OR of krows bit-sliced key matches -> partial row c.
-
-    Same bit-plane decomposition as scan._shared_scan_bitsliced_kernel —
-    one 32-value block transposed into ``width`` plane words (VMEM
-    scratch, reused across key chunks), then each key is an XOR+AND fold
-    over the planes: ~(2*width+1)/32 ops per value per key instead of the
-    compare tier's ~3.  Keys may be traced; out-of-domain keys (incl. the
-    0xFFFFFFFF chunk padding sentinel) are killed by a scalar mask."""
-    def _fill():
-        vs = [v for _, v in _unpack_block_values(in_ref, width)]
-        ps = _transpose_bitplanes(vs, width)
-        for p in range(width):
-            planes[p] = ps[p]
-
-    if nchunks > 1:
-        pl.when(pl.program_id(1) == 0)(_fill)
-    else:
-        _fill()
-
-    dom = jnp.uint32(1 << width)
-    one = jnp.uint32(1)
-    acc = jnp.zeros((tb, LANES), jnp.uint32)
-    for j in range(krows):
-        key = keys_ref[j, 0]
-        km = jnp.where(key < dom, jnp.uint32(0xFFFFFFFF), jnp.uint32(0))
-        m = None
-        for p in range(width):
-            mask = ((key >> jnp.uint32(p)) & one) - one
-            term = planes[p] ^ mask
-            m = term if m is None else m & term
-        acc = acc | (m & km)
-    _store_rows_tail_masked(
-        off_ref, pl.program_id(0), tb, n, [acc], bits_ref, cnt_ref
-    )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("width", "n", "tb", "interpret", "krows")
-)
-def _member_bitsliced_tiles(
-    tiles, keys2, width, n, tb, interpret, krows, block_offset
-):
-    nchunks = keys2.shape[0] // krows
-    bits, cnt = _member_call(
-        lambda tbv: functools.partial(
-            _member_bitsliced_kernel, width=width, tb=tbv, n=n,
-            krows=krows, nchunks=nchunks,
-        ),
-        keys2, krows, tiles, width, n, tb, interpret, block_offset,
-        nchunks=nchunks, scratch_rows=width,
-    )
-    if nchunks == 1:
-        return bits[0], jnp.sum(cnt.astype(jnp.uint32))
-    row = _or_rows(bits)
-    return row, jnp.sum(jax.lax.population_count(row).astype(jnp.uint32))
-
-
 def _bitsliced_member_wins(width: int, k: int) -> bool:
     """Static cost rule, quarter-ops-per-value units: bit-sliced fixed
-    cost ~48 (unpack + SWAPMOVE transpose + plane stores) plus
-    (2*width+1)/8 per key, vs the compare tier's ~10 per key."""
+    cost ~48 (unpack + SWAPMOVE transpose) plus (2*width+1)/8 per key, vs
+    the compare tier's ~10 per key."""
     return 48 + (2 * width + 1) * k // 8 < 10 * k
-
-
-def _member_tb(
-    width: int, extra: int, b1: int, tb: int | None, cap: int = 256
-) -> int:
-    per_tb = 512 * (2 * width + 2 + extra)
-    tb_auto = min(cap, max(8, (12_000_000 // per_tb) // 8 * 8))
-    return _pick_tb(b1, tb if tb is not None else tb_auto)
-
-
-def _member_call(
-    kernel_fn, operand, op_rows: int, tiles, width, n, tb, interpret,
-    block_offset, nchunks: int = 1, scratch_rows: int = 0,
-    extra_rows: int = 0, tb_cap: int = 256,
-):
-    """Shared pallas_call plumbing for the member kernels.
-
-    Emits bits (nchunks, B1, 128) — one partial row per key/window chunk
-    (nchunks == 1 for the single-call kernels) — plus per-step count
-    partials.  ``operand`` is the SMEM table ((op_rows, cols) uint32);
-    ``kernel_fn(tb)`` builds the kernel for the chosen sublane tile;
-    ``scratch_rows`` rows of (tb, LANES) uint32 VMEM scratch are passed to
-    the kernel when nonzero; ``extra_rows`` budgets additional live
-    (tb, LANES) vectors the kernel body holds (DAG intermediates) so the
-    tile auto-size keeps the working set inside VMEM."""
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    extra = scratch_rows + extra_rows + 8
-    tb = _member_tb(width, extra, b1, tb, cap=tb_cap)
-    kernel = kernel_fn(tb)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    if nchunks == 1:
-        grid = (b1 // tb,)
-        in_ix = lambda i: (0, 0)  # noqa: E731
-        tile_ix = lambda i: (0, i, 0)  # noqa: E731
-        bits_ix = lambda i: (0, i, 0)  # noqa: E731
-        cnt_ix = lambda i: (i, 0, 0)  # noqa: E731
-    else:
-        # The count-partials block is (1, 1, LANES); Mosaic requires the
-        # -2 block dim to divide 8 or equal the array dim, so the chunk
-        # axis cannot be a sized-nchunks array dim — flatten (i, c) into
-        # the leading axis so every grid step owns a distinct block.
-        grid = (b1 // tb, nchunks)
-        in_ix = lambda i, c: (0, 0)  # noqa: E731
-        tile_ix = lambda i, c: (0, i, 0)  # noqa: E731
-        bits_ix = lambda i, c: (c, i, 0)  # noqa: E731
-        cnt_ix = lambda i, c: (i * nchunks + c, 0, 0)  # noqa: E731
-    bits, cnt = pl.pallas_call(
-        kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((nchunks, b1, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb * nchunks, 1, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), in_ix, memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (op_rows, operand.shape[1]),
-                (lambda i, c: (c, 0)) if nchunks > 1 else (lambda i: (0, 0)),
-                memory_space=pltpu.SMEM,
-            ),
-            pl.BlockSpec((width, tb, LANES), tile_ix, memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, tb, LANES), bits_ix, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 1, LANES), cnt_ix, memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=(
-            [pltpu.VMEM((scratch_rows, tb, LANES), jnp.uint32)]
-            if scratch_rows
-            else []
-        ),
-        interpret=interpret,
-    )(off, operand, tiles)
-    return bits, cnt
-
-
-def _or_rows(bits: jax.Array) -> jax.Array:
-    """OR the (nchunks, B1, 128) partial member rows into one row."""
-    return jax.lax.reduce(
-        bits, jnp.uint32(0), jax.lax.bitwise_or, (0,)
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("width", "n", "tb", "interpret"))
-def _member_compare_tiles(tiles, keys2, width, n, tb, interpret, block_offset):
-    k = int(keys2.shape[0])
-    bits, cnt = _member_call(
-        lambda tbv: functools.partial(
-            _member_compare_kernel, width=width, k=k, tb=tbv, n=n
-        ),
-        keys2, k, tiles, width, n, tb, interpret, block_offset,
-    )
-    return bits[0], jnp.sum(cnt.astype(jnp.uint32))
-
-
-@functools.partial(
-    jax.jit, static_argnames=("width", "n", "tb", "interpret", "gateless")
-)
-def _member_window_tiles(tiles, win, width, n, tb, interpret, gateless, block_offset):
-    nwin = int(win.shape[0])
-    bits, cnt = _member_call(
-        lambda tbv: functools.partial(
-            _member_window_kernel, width=width, nwin=nwin, tb=tbv, n=n,
-            gateless=gateless,
-        ),
-        win, nwin, tiles, width, n, tb, interpret, block_offset,
-    )
-    return bits[0], jnp.sum(cnt.astype(jnp.uint32))
-
-
-@functools.partial(
-    jax.jit, static_argnames=("width", "n", "tb", "interpret", "krows")
-)
-def _member_chunked_compare_tiles(
-    tiles, keys2, width, n, tb, interpret, krows, block_offset
-):
-    nchunks = keys2.shape[0] // krows
-    bits, _ = _member_call(
-        lambda tbv: functools.partial(
-            _member_chunked_compare_kernel, width=width, tb=tbv, n=n,
-            krows=krows,
-        ),
-        keys2, krows, tiles, width, n, tb, interpret, block_offset,
-        nchunks=nchunks, scratch_rows=BLOCK_VALUES,
-    )
-    # OR the chunk partials in XLA; count from the final row so duplicate
-    # keys across chunks can never double-count.
-    row = _or_rows(bits)
-    return row, jnp.sum(jax.lax.population_count(row).astype(jnp.uint32))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("width", "n", "tb", "interpret", "wrows", "gateless"),
-)
-def _member_chunked_window_tiles(
-    tiles, win, width, n, tb, interpret, wrows, gateless, block_offset
-):
-    nchunks = win.shape[0] // wrows
-    bits, _ = _member_call(
-        lambda tbv: functools.partial(
-            _member_chunked_window_kernel, width=width, tb=tbv, n=n,
-            wrows=wrows, gateless=gateless,
-        ),
-        win, wrows, tiles, width, n, tb, interpret, block_offset,
-        nchunks=nchunks, scratch_rows=BLOCK_VALUES,
-    )
-    row = _or_rows(bits)
-    return row, jnp.sum(jax.lax.population_count(row).astype(jnp.uint32))
 
 
 def _consecutive_span(arr: np.ndarray) -> int | None:
@@ -574,8 +291,6 @@ def member_scan_tiles(
     keys,
     width: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
 ) -> tuple[jax.Array, jax.Array]:
     """Membership scan -> (bits uint32[B1, 128], total count uint32).
@@ -587,7 +302,7 @@ def member_scan_tiles(
     The static dispatch inspects ``keys`` BEFORE any jnp conversion:
     inside a jit trace ``jnp.asarray`` stages even a numpy constant into
     a Tracer, which would silently demote concrete keys to the traced
-    fallback tier (measured 2.4x slower on the interval shape)."""
+    fallback tier."""
     traced = isinstance(keys, jax.core.Tracer)
     k = int(keys.shape[0] if traced else np.asarray(keys).shape[0])
     if k < 1:
@@ -597,15 +312,11 @@ def member_scan_tiles(
         tier = member_dispatch_tier(arr, width)
         if tier == "interval":
             lo = _consecutive_span(arr)
-            # one unsigned range compare per value, for any k.  tb=256
-            # measured best on v5e at 512 MiB (633 GB/s vs 582 at the
-            # range kernel's inherited default of 512).
             bits, cnt = range_scan_tiles(
                 tiles,
                 jnp.asarray([lo], jnp.uint32),
                 jnp.asarray([lo + k], jnp.uint32),
-                width, n, tb=tb if tb is not None else 256,
-                interpret=interpret, block_offset=block_offset,
+                width, n, block_offset=block_offset,
             )
             return bits[0], cnt[0]
         if tier == "ortree":
@@ -613,84 +324,36 @@ def member_scan_tiles(
             pats = tuple(sorted({int(v) for v in arr.tolist() if int(v) < dom}))
             if not pats:
                 # every key out of domain: nothing can match
-                return (
-                    jnp.zeros(tiles.shape[1:], jnp.uint32),
-                    jnp.uint32(0),
-                )
+                return jnp.zeros(tiles.shape[1:], jnp.uint32), jnp.uint32(0)
             return _member_ortree_tiles(
-                tiles, width, n, tb, interpret, pats, block_offset
+                tiles, block_offset, width=width, n=n, patterns=pats
             )
         if tier == "window":
             bases, pops = member_window_plan(arr)
-            nwin = len(bases)
-            win = jnp.asarray(
-                np.stack([bases, pops], axis=1).astype(np.uint32)
-            )  # (nwin, 2)
-            gateless = shift_saturates(interpret=interpret)
-            if nwin <= _MAX_WINDOWS:
-                return _member_window_tiles(
-                    tiles, win, width, n, tb, interpret, gateless, block_offset
-                )
-            wrows = _MAX_WINDOWS
-            pad = (-nwin) % wrows
-            if pad:
-                # empty-popmask padding windows match nothing
-                win = jnp.concatenate(
-                    [win, jnp.zeros((pad, 2), jnp.uint32)], axis=0
-                )
-            return _member_chunked_window_tiles(
-                tiles, win, width, n, tb, interpret, wrows, gateless,
-                block_offset,
+            return _member_window_tiles(
+                tiles, jnp.asarray(np.asarray(bases, np.uint32)),
+                jnp.asarray(np.asarray(pops, np.uint32)), block_offset,
+                width=width, n=n,
             )
         if tier == "domain":
             return _member_domain_tiles(
-                tiles, domain_table(arr, width), width, n, tb, interpret,
-                block_offset,
+                tiles, domain_table(arr, width), block_offset, width=width, n=n
             )
-    keys2 = jnp.asarray(keys, jnp.uint32).reshape(k, 1)
-    if _domain_member_cost(width) < min(
-        10 * k, 48 + (2 * width + 1) * k // 8
-    ):
+    keys = jnp.asarray(keys, jnp.uint32).reshape(k)
+    if _domain_member_cost(width) < min(10 * k, 48 + (2 * width + 1) * k // 8):
         # flat-in-k domain bitmap; the table build works on traced keys too
         return _member_domain_tiles(
-            tiles, domain_table(keys2[:, 0], width), width, n, tb,
-            interpret, block_offset,
+            tiles, domain_table(keys, width), block_offset, width=width, n=n
         )
     if _bitsliced_member_wins(width, k):
-        krows = min(k, _MAX_COMPARE_KEYS)
-        pad = (-k) % krows
-        if pad:
-            # out-of-domain sentinel padding, killed by the kernel's km mask
-            keys2 = jnp.concatenate(
-                [keys2, jnp.full((pad, 1), 0xFFFFFFFF, jnp.uint32)], axis=0
-            )
-        return _member_bitsliced_tiles(
-            tiles, keys2, width, n, tb, interpret, krows, block_offset
-        )
-    if k <= _MAX_COMPARE_KEYS:
-        return _member_compare_tiles(
-            tiles, keys2, width, n, tb, interpret, block_offset
-        )
-    krows = _MAX_COMPARE_KEYS
-    pad = (-k) % krows
-    if pad:
-        # unmatchable sentinel padding (values are < 2^width <= 2^31)
-        keys2 = jnp.concatenate(
-            [keys2, jnp.full((pad, 1), 0xFFFFFFFF, jnp.uint32)], axis=0
-        )
-    return _member_chunked_compare_tiles(
-        tiles, keys2, width, n, tb, interpret, krows, block_offset
-    )
+        return _member_bitsliced_tiles(tiles, keys, block_offset, width=width, n=n)
+    return _member_compare_tiles(tiles, keys, block_offset, width=width, n=n)
 
 
-def member_scan_device(
-    dev: DeviceColumn, keys, tb: int | None = None, interpret: bool = False
-) -> tuple[jax.Array, jax.Array]:
+def member_scan_device(dev: DeviceColumn, keys) -> tuple[jax.Array, jax.Array]:
     """IN-list scan on a DeviceColumn -> ((W,) canonical bitvector words,
     scalar match count)."""
-    bits, count = member_scan_tiles(
-        dev.tiles, keys, dev.width, dev.n, tb=tb, interpret=interpret
-    )
+    bits, count = member_scan_tiles(dev.tiles, keys, dev.width, dev.n)
     return bits_to_canonical(bits, dev.n), count
 
 

@@ -1,14 +1,14 @@
 """Pure-jnp oracle implementations — the semantic ground truth.
 
-TPU-native counterparts of the reference's scalar oracles:
+Counterparts of the reference's scalar oracles:
 ``decompress_unvectorized`` (src/simd_scan_decompression.cpp:6-55) and
-``scan_unvectorized`` (src/simd_scan.cpp:20-100).  Every Pallas kernel in
+``scan_unvectorized`` (src/simd_scan.cpp:20-100).  Every tier in
 ``shared_simd_scan_tpu.ops`` is property-tested against these, mirroring the
 reference's oracle test pattern (test/simd_scan_tests.cpp:20-43, 53-66).
 
 These are vectorized jnp programs (per-value two-word gather + funnel
 shift), not element loops — they run fine under jit on any backend and
-double as the single-chip fallback path when Pallas is unavailable.
+double as a portable fallback path on any backend.
 """
 from __future__ import annotations
 

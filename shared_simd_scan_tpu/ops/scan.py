@@ -1,6 +1,6 @@
-"""Pallas TPU fused scan kernels: single-predicate and shared (k-predicate).
+"""Fused scan tiers: single-predicate and shared (k-predicate) scans.
 
-TPU-native re-design of the reference's scan family:
+Re-design of the reference's scan family:
   - ``scan_128`` / ``scan_256`` (src/simd_scan.cpp:102-307): unpack fused
     with one equality compare, LSB-first match bitvector + hit count.
   - ``shared_scan_128_standard`` and friends (src/simd_scan_shared.cpp):
@@ -8,21 +8,24 @@ TPU-native re-design of the reference's scan family:
     an inner compare loop over the predicate table (the "horizontal" shared
     scan, simd_scan_shared.cpp:49-86).  The vertical/parallel, sequential,
     threaded, and unrolled reference variants are all expressions of the
-    same semantics under different CPU resource constraints; on TPU they
-    collapse into this single kernel (SURVEY.md §2.4): values ride the
-    lane axis, the predicate loop is unrolled at trace time (k is a static
-    jit specialization — the analog of the reference's
-    ``shared_scan_128_linear_static<NUM>`` template, simd_scan.hpp:122-236).
+    same semantics under different CPU resource constraints; here they
+    collapse into tier bodies over whole word rows (SURVEY.md §2.4): values
+    ride the (block row, lane) axes, the predicate loop is unrolled at
+    trace time (k is a static jit specialization — the analog of the
+    reference's ``shared_scan_128_linear_static<NUM>`` template,
+    simd_scan.hpp:122-236).
 
 Key layout win: one 32-value block contributes exactly one uint32 word of
-the match bitvector, so the kernel emits ``bits[k, B1, 128]`` with NO
+the match bitvector, so a tier emits ``bits[k, B1, 128]`` with NO
 cross-lane traffic — the movemask packing (simd_scan.cpp:132,145) becomes
 ``acc |= (v_r == key) << r`` per unrolled r.  Canonical LSB-first order is a
 reshape, byte-identical to the reference.
 
-Hit counts are accumulated in-kernel (per-lane partials, reduced at the
-end) so the bitvector is never re-read from HBM — the count is free,
-matching the reference's in-loop POPCNT accumulation (simd_scan.cpp:153).
+Every tier is a *body* (ops/driver.py): a pure elementwise function of the
+column's word rows that returns the k match words.  The drivers add the
+validity mask, the counts and the stacked output; :data:`TRITON_TIERS`
+names the tiers whose default driver is the Pallas Triton program instead
+of XLA.
 """
 from __future__ import annotations
 
@@ -31,128 +34,108 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from shared_simd_scan_tpu.layout import (
     BLOCK_VALUES,
-    LANES,
     DeviceColumn,
     bitvector_words,
+    unpack_schedule,
 )
-from shared_simd_scan_tpu.ops.unpack import (
-    _pick_tb,
-    _unpack_block_values,
-    _unpack_value_at,
-)
+from shared_simd_scan_tpu.ops import driver
+from shared_simd_scan_tpu.ops.unpack import unpack_value_at, unpack_values
+
+# Tiers whose default driver is the Pallas Triton program (driver.
+# scan_triton), each up to a key count; every other tier, and these past
+# their cap, run under XLA.  The choice is static and comes from
+# measurement on the card (PERF.md, w=9, 512 MiB): Triton beat XLA end to
+# end at every key count timed up to each cap — interval at k=8/24/32/33/
+# 48/64, static AND-DAG at 8/20/32/33/48/64, traced bit-sliced at
+# 8/20/32/33 (XLA won at 64), compare at 1/2/4/8 — and each tier compiled
+# and matched XLA at its cap for widths 1, 8, 9, 17 and 31.
+TRITON_TIERS: dict[str, int] = {
+    "interval": 64,
+    "bitsliced_static": 64,
+    "bitsliced": 32,
+    "compare": 8,
+}
 
 
-def _vmem_tb_cap(width: int, k: int, extra: int = 8,
-                 budget: int = 12_000_000) -> int:
-    """Largest sublane tile whose VMEM working set fits the ~16 MB budget
-    (with headroom): double-buffered input blocks (2*width words/block),
-    bits output (+double buffer) and live accumulators per block are all
-    proportional to tb * 512 B."""
-    per_tb = 512 * (2 * width + 3 * k + extra)
-    return max(8, (budget // per_tb) // 8 * 8)
+def _backend(tier: str, backend: str | None, k: int) -> str:
+    """The driver a tier call runs under ("xla" or "triton"), resolved
+    before its jit so the compile cache keys on it."""
+    if backend is None:
+        return "triton" if k <= TRITON_TIERS.get(tier, 0) else "xla"
+    if backend not in ("xla", "triton"):
+        raise ValueError(f"backend must be 'xla' or 'triton', got {backend!r}")
+    return backend
 
 
-def default_scan_tb(k: int, width: int = 9) -> int:
-    """Default blocks-sublane tile for the scan kernel.
-
-    Measured on v5e at 512 MiB: per-grid-step overhead dominates small
-    tiles (tb=32 left k=1 at ~20% of roofline), while VMEM pressure caps
-    large ones as k and width grow.  tb=512 puts k=1 at ~95% of the HBM
-    roofline; k=8 peaks around tb=128."""
-    return min(512, max(32, 1024 // max(k, 1)), _vmem_tb_cap(width, k))
+def _drive(body, tiles, n, operands, block_offset, backend, k):
+    """Run a tier body under the chosen driver -> (bits, counts)."""
+    if backend == "triton":
+        return driver.scan_triton(body, tiles, operands, block_offset, k=k, n=n)
+    return driver.scan_xla(body, tiles, n, *operands, block_offset=block_offset)
 
 
-def _shared_scan_kernel(off_ref, keys_ref, in_ref, bits_ref, cnt_ref, *, width, k, tb, n):
-    """One grid step: blocks tile (width, TB, 128) -> bits (k, TB, 128)
-    plus this step's partial hit counts (1, k, LANES).
+# ---------------------------------------------------------------------------
+# Compare tier: k equality predicates, any (traced) keys
+# ---------------------------------------------------------------------------
 
-    Counts are written to a distinct block per grid step and reduced by the
-    caller: accumulating into one revisited VMEM block instead creates a
-    cross-step dependency that stalls the grid pipeline (measured ~20%
-    on the k=1 scan)."""
-    i = pl.program_id(0)
 
-    # Validity mask per block word: zero bits at value index >= n
-    # (reference scalar-oracle semantics, simd_scan.cpp:93-97; its SIMD
-    # kernels write garbage into padding instead — not replicated).
-    # off_ref holds this shard's global block offset (0 when unsharded) so
-    # the same kernel serves the shard_map'd data-parallel path (dist.py).
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
-    row = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-    g = off_ref[0, 0] + (i * tb + row) * LANES + lane  # global block id
-    valid = jnp.where(
-        g < full,
-        jnp.uint32(0xFFFFFFFF),
-        jnp.where(g == full, jnp.uint32((1 << rem) - 1 if rem else 0), jnp.uint32(0)),
-    )
+def _compare_rows(words, keys, *, width, k):
+    """k match words, one ``v == key`` compare per (value, key).
 
-    # Skip-normalization compare (the reference's core scan trick,
-    # scan_128 simd_scan.cpp:113-137 via the clean/predicate mask pair,
-    # simd_scan_commons.hpp:52-90): for values that do not straddle a word
-    # boundary, AND the word with the clean mask (value left IN PLACE at
-    # bit offset s) and compare against the key pre-shifted by s — one
-    # vector op instead of the shift+AND normalization.  Straddling values
-    # still take the normalized path.  Out-of-domain keys (>= 2^width)
-    # must match nothing: their shifted form could alias a cleaned value
-    # mod 2^32, so they are replaced by an unmatchable all-ones sentinel
-    # (a cleaned word always has zeros outside [s, s+width)).
-    from shared_simd_scan_tpu.layout import unpack_schedule
-
-    sched = unpack_schedule(width)
+    Skip-normalization compare (the reference's core scan trick,
+    scan_128 simd_scan.cpp:113-137 via the clean/predicate mask pair,
+    simd_scan_commons.hpp:52-90): for values that do not straddle a word
+    boundary, AND the word with the clean mask (value left IN PLACE at bit
+    offset s) and compare against the key pre-shifted by s — one op
+    instead of the shift+AND normalization.  Straddling values still take
+    the normalized path.  Out-of-domain keys (>= 2^width) must match
+    nothing: their shifted form could alias a cleaned value mod 2^32, so
+    they are replaced by an unmatchable all-ones sentinel (a cleaned word
+    always has zeros outside [s, s+width))."""
     dom = jnp.uint32(1 << width)
-    skeys = []  # per value-slot r: (shifted key per j) or None -> normalized
-    for r, (kw, s, straddles) in enumerate(sched):
-        if straddles:
-            skeys.append(None)
-        else:
-            row = []
-            for j in range(k):
-                key = keys_ref[j, 0]
-                row.append(
-                    jnp.where(key < dom, key << jnp.uint32(s), jnp.uint32(0xFFFFFFFF))
-                )
-            skeys.append(row)
-
-    accs = [jnp.zeros((tb, LANES), jnp.uint32) for _ in range(k)]
     vmask = (1 << width) - 1
-    for r, (kw, s, straddles) in enumerate(sched):
+    key = [keys[j] for j in range(k)]
+    shifted: dict[int, list] = {}
+    accs = [jnp.uint32(0)] * k
+    for r, (kw, s, straddles) in enumerate(unpack_schedule(width)):
         bit = jnp.uint32(1 << r)
         if straddles:
-            v = _unpack_value_at(in_ref, width, r)
-            for j in range(k):
-                key = keys_ref[j, 0]
-                accs[j] = accs[j] | jnp.where(v == key, bit, jnp.uint32(0))
+            v = unpack_value_at(words, width, r)
+            cmp = key
         else:
-            cleaned = in_ref[kw] & jnp.uint32(vmask << s)
-            for j in range(k):
-                accs[j] = accs[j] | jnp.where(cleaned == skeys[r][j], bit, jnp.uint32(0))
+            v = words[kw] & jnp.uint32(vmask << s)
+            if s not in shifted:
+                shifted[s] = [
+                    jnp.where(kj < dom, kj << jnp.uint32(s), jnp.uint32(0xFFFFFFFF))
+                    for kj in key
+                ]
+            cmp = shifted[s]
+        for j in range(k):
+            accs[j] = accs[j] | jnp.where(v == cmp[j], bit, jnp.uint32(0))
+    return accs
 
-    for j in range(k):
-        word = accs[j] & valid
-        bits_ref[j] = word
-        cnt_ref[0, j] = jnp.sum(
-            jax.lax.population_count(word).astype(jnp.int32), axis=0
-        )
+
+@functools.partial(jax.jit, static_argnames=("width", "n", "backend"))
+def _compare_impl(tiles, keys, block_offset, *, width, n, backend):
+    k = int(keys.shape[0])
+    body = functools.partial(_compare_rows, width=width, k=k)
+    return _drive(body, tiles, n, (keys.astype(jnp.uint32),), block_offset,
+                  backend, k)
 
 
-@functools.partial(jax.jit, static_argnames=("width", "n", "tb", "interpret"))
 def shared_scan_tiles(
     tiles: jax.Array,
     keys: jax.Array,
     width: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
+    backend: str | None = None,
 ) -> tuple[jax.Array, jax.Array]:
     """tiles uint32[width, B1, 128], keys uint32[k] ->
-    (bits uint32[k, B1, 128], counts int32[k]).
+    (bits uint32[k, B1, 128], counts uint32[k]).
 
     ``bits[j].reshape(-1)[:bitvector_words(n)]`` is the canonical LSB-first
     bitvector for predicate j (byte-parity with the reference).
@@ -160,37 +143,12 @@ def shared_scan_tiles(
     ``block_offset`` is the global index of this tile array's first block —
     nonzero only on the shard_map'd path (dist.py), where ``n`` is the
     GLOBAL value count and each shard masks its own tail region.
-    """
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    k = int(keys.shape[0])
-    tb = _pick_tb(b1, tb if tb is not None else default_scan_tb(k, width))
-    grid = (b1 // tb,)
-    keys2 = keys.astype(jnp.uint32).reshape(k, 1)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    bits, cnt = pl.pallas_call(
-        functools.partial(_shared_scan_kernel, width=width, k=k, tb=tb, n=n),
-        out_shape=(
-            jax.ShapeDtypeStruct((k, b1, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((k, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (k, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )(off, keys2, tiles)
-    return bits, jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
+    ``backend`` forces a driver ("xla" or "triton"); None takes the
+    dispatch default (:data:`TRITON_TIERS`)."""
+    return _compare_impl(
+        tiles, jnp.asarray(keys, jnp.uint32), block_offset, width=width, n=n,
+        backend=_backend("compare", backend, int(jnp.shape(keys)[0])),
+    )
 
 
 def bits_to_canonical(bits: jax.Array, n: int) -> jax.Array:
@@ -200,14 +158,8 @@ def bits_to_canonical(bits: jax.Array, n: int) -> jax.Array:
 
 
 def _consecutive_lo(keys) -> int | None:
-    """lo if keys are the concrete consecutive run lo..lo+k-1.
-
-    Threshold k >= 2: with the SWAPMOVE transpose the interval kernel
-    beats the general compare kernel from k=2 up (v5e, 64 MiB: 610 vs
-    547 GB/s at k=2); only the single-key scan stays on the general
-    kernel (634 vs ~600)."""
-    import numpy as np
-
+    """lo if keys are the concrete consecutive run lo..lo+k-1 (2 <= k <=
+    1024); only the single-key scan stays on the compare tier."""
     if isinstance(keys, jax.core.Tracer):
         return None
     arr = np.asarray(keys)
@@ -219,24 +171,21 @@ def _consecutive_lo(keys) -> int | None:
 
 
 def bitsliced_cost(width: int, k: int) -> int:
-    """Static cost of the bit-sliced kernel in the dispatch's
-    quarter-ops-per-value units: ~48 fixed (unpack + SWAPMOVE transpose +
-    plane stores, amortized over the key chunks of one block tile) plus
-    width/4 per key (2*width ops per 32-value word)."""
+    """Static cost of the bit-sliced tier in the dispatch's
+    quarter-ops-per-value units: ~48 fixed (unpack + SWAPMOVE transpose)
+    plus width/4 per key (2*width ops per 32-value word)."""
     return 48 + width * k // 4
 
 
 def _bitsliced_wins(width: int, k: int) -> bool:
-    """Bit-sliced vs the general compare kernel (~12 per key + ~4 fixed
-    in quarter-ops-per-value units).  At width 9 this crosses at k=5;
-    measured v5e 64 MiB: k=8 550 vs 328 GB/s, k=16 608 vs 266 — and the
-    compare path only falls further behind as k grows."""
+    """Bit-sliced vs the compare tier (~12 per key + ~4 fixed in
+    quarter-ops-per-value units); at width 9 this crosses at k=5."""
     return bitsliced_cost(width, k) < 4 + 12 * k
 
 
 def pick_concrete_tier(width: int, keys) -> tuple[str, int | None]:
     """THE single home of the concrete-key shared-scan dispatch rule —
-    both the single-chip dispatcher (:func:`shared_scan_device`) and the
+    both the single-device dispatcher (:func:`shared_scan_device`) and the
     sharded one (parallel.dist.sharded_shared_scan) call this, so
     retuning the cost constants cannot desynchronize them (same
     convention as member.member_dispatch_tier).
@@ -259,22 +208,20 @@ def pick_concrete_tier(width: int, keys) -> tuple[str, int | None]:
     return "compare", None
 
 
-def shared_scan_device(
-    dev: DeviceColumn, keys, tb: int | None = None, interpret: bool = False
-) -> tuple[jax.Array, jax.Array]:
+def shared_scan_device(dev: DeviceColumn, keys) -> tuple[jax.Array, jax.Array]:
     """Shared scan on a DeviceColumn -> ((k, W) canonical bitvectors, (k,) counts).
 
     Dispatch (static, on the concrete key set when available):
     - consecutive run lo..lo+k-1 (the reference benchmark's own shape):
-      the O(1)-in-k interval kernel;
+      the O(1)-in-k interval tier;
     - other concrete key sets: the cheapest of {windowed, static AND-DAG
       bit-sliced, general compare} by counted static cost — the AND-DAG
       tier prices the exact DAG its key set compiles to
       (:func:`bitsliced_static_cost`), so clustered sets that share
       subtree structure and spread sets are both handled;
     - traced keys past the cost crossover (k >= 5 at width 9): the
-      dynamic bit-sliced kernel (any k);
-    - otherwise: the general static compare kernel.
+      bit-sliced tier (any k);
+    - otherwise: the general compare tier.
 
     The key inspection happens BEFORE any jnp conversion: inside a jit
     trace ``jnp.asarray`` stages even a numpy constant into a Tracer,
@@ -284,870 +231,69 @@ def shared_scan_device(
     if not traced:
         keys = np.asarray(keys, dtype=np.uint32)
     k = int(keys.shape[0])
+    w, n = dev.width, dev.n
     if not traced:
-        tier, lo = pick_concrete_tier(dev.width, keys)
-        fn = {
-            "windowed": windowed_scan_tiles,
-            "bitsliced_static": shared_scan_bitsliced_static_tiles,
-            "compare": shared_scan_tiles,
-        }
+        tier, lo = pick_concrete_tier(w, keys)
         if tier == "interval":
-            bits, counts = interval_scan_tiles(
-                dev.tiles, lo, k, dev.width, dev.n, tb=tb,
-                interpret=interpret,
-            )
+            bits, counts = interval_scan_tiles(dev.tiles, lo, k, w, n)
+        elif tier == "windowed":
+            bits, counts = windowed_scan_tiles(dev.tiles, keys, w, n)
+        elif tier == "bitsliced_static":
+            bits, counts = shared_scan_bitsliced_static_tiles(dev.tiles, keys, w, n)
         else:
-            bits, counts = fn[tier](
-                dev.tiles, keys, dev.width, dev.n, tb=tb, interpret=interpret
-            )
-    elif _bitsliced_wins(dev.width, k):
-        bits, counts = shared_scan_bitsliced_tiles(
-            dev.tiles, keys, dev.width, dev.n, tb=tb, interpret=interpret
-        )
+            bits, counts = shared_scan_tiles(dev.tiles, jnp.asarray(keys), w, n)
+    elif _bitsliced_wins(w, k):
+        bits, counts = shared_scan_bitsliced_tiles(dev.tiles, keys, w, n)
     else:
-        bits, counts = shared_scan_tiles(
-            dev.tiles, keys, dev.width, dev.n, tb=tb, interpret=interpret
-        )
-    return bits_to_canonical(bits, dev.n), counts
+        bits, counts = shared_scan_tiles(dev.tiles, keys, w, n)
+    return bits_to_canonical(bits, n), counts
 
 
-def scan_device(
-    dev: DeviceColumn, predicate_key, tb: int | None = None, interpret: bool = False
-) -> tuple[jax.Array, jax.Array]:
+def scan_device(dev: DeviceColumn, predicate_key) -> tuple[jax.Array, jax.Array]:
     """Single-predicate scan (counterpart of scan_128, simd_scan.cpp:103-158):
     -> ((W,) canonical bitvector words, scalar hit count)."""
     keys = jnp.asarray(predicate_key, jnp.uint32).reshape(1)
-    bits, counts = shared_scan_device(dev, keys, tb=tb, interpret=interpret)
+    bits, counts = shared_scan_device(dev, keys)
     return bits[0], counts[0]
 
 
-def _byte_transpose_quad(x0, x1, x2, x3):
-    """4x4 byte-matrix transpose of four uint32 vectors (12 vector ops).
-
-    Input matrix M[p][s] = byte s of x_p (LSB-first); output y_s with
-    byte p of y_s = M[p][s].  Two SWAPMOVE stages — the byte analog of
-    the bit transpose in :func:`_transpose8x8_bytes`."""
-    u0, u1 = _swapmove(x0, x1, 0x00FF00FF, 8)
-    u2, u3 = _swapmove(x2, x3, 0x00FF00FF, 8)
-    y0, y2 = _swapmove(u0, u2, 0x0000FFFF, 16)
-    y1, y3 = _swapmove(u1, u3, 0x0000FFFF, 16)
-    return y0, y1, y2, y3
+# ---------------------------------------------------------------------------
+# Linear (interleaved) export
+# ---------------------------------------------------------------------------
 
 
 @functools.partial(jax.jit, static_argnames=("nbytes",))
-def _interleave_linear(bits: jax.Array, nbytes: int) -> jax.Array:
-    """(k, W) uint32 bitvectors -> uint8[nbytes * k] in out[group*k + key]
-    byte order.
-
-    Fast path (k % 4 == 0): stay in uint32 space.  Out *word*
-    m = t*k + s*(k/4) + h holds out bytes (group 4t+s, keys 4h..4h+3),
-    i.e. byte p of word m = byte s of bits[4h+p, t] — so the k output
-    word streams fall out of k/4 SWAPMOVE byte-transpose quads (3 vector
-    ops per output word, all elementwise) and the ONLY data movement is
-    one (W, k) uint32 interleave-stack, 4x fewer elements and a far
-    friendlier tile shape than the naive uint8 (k, nbytes) transpose
-    (measured 66x slower at 512 MiB).
-
-    The relayout is still TPU-layout-hostile (minor dim k pads to the
-    128-lane tile); done in one shot XLA materialized a 30 GB padded
-    broadcast at 512 MiB (measured OOM).  Chunking over the word axis
-    bounds the padded intermediates — byte groups of chunk c land at
-    out[c*wc*4*k:], so chunk outputs concatenate contiguously."""
+def interleave_linear(bits: jax.Array, nbytes: int) -> jax.Array:
+    """(k, W) uint32 bitvectors -> uint8[nbytes * k] in ``out[group*k +
+    key]`` byte order: byte ``group`` of every key's bitvector, key-minor.
+    One byte transpose (bitvector bytes are little-endian words)."""
     k, w = bits.shape
-    if k % 4 == 0:
-        def relayout(b):  # (k, wc) uint32 -> (wc*4*k,) uint8
-            ys = [None] * k
-            for h in range(k // 4):
-                q = _byte_transpose_quad(b[4 * h], b[4 * h + 1],
-                                         b[4 * h + 2], b[4 * h + 3])
-                for s in range(4):
-                    ys[s * (k // 4) + h] = q[s]
-            return jax.lax.bitcast_convert_type(
-                jnp.stack(ys, axis=-1), jnp.uint8
-            ).reshape(-1)
-    else:
-        shifts = jnp.uint32(8) * jnp.arange(4, dtype=jnp.uint32)
-
-        def relayout(b):  # (k, wc) -> (wc*4*k,) uint8
-            by = ((b[:, :, None] >> shifts[None, None, :]) & 0xFF).astype(
-                jnp.uint8
-            )
-            return by.reshape(k, -1).T.reshape(-1)
-
-    if w <= 65536:
-        return relayout(bits)[: nbytes * k]
-    wc = -(-(-(-w // 64)) // 128) * 128  # ~64 lane-aligned chunks
-    nc = -(-w // wc)
-    if nc * wc != w:
-        bits = jnp.concatenate(
-            [bits, jnp.zeros((k, nc * wc - w), jnp.uint32)], axis=1
-        )
-    out = jax.lax.map(relayout, bits.reshape(k, nc, wc).transpose(1, 0, 2))
-    return out.reshape(-1)[: nbytes * k]
+    by = jax.lax.bitcast_convert_type(bits, jnp.uint8).reshape(k, 4 * w)
+    return by[:, :nbytes].T.reshape(-1)
 
 
-def shared_scan_linear_device(
-    dev: DeviceColumn, keys, tb: int | None = None, interpret: bool = False
-) -> jax.Array:
+def shared_scan_linear_device(dev: DeviceColumn, keys) -> jax.Array:
     """Linear (interleaved) shared scan -> uint8[ceil(n/8) * k].
 
     Byte layout ``out[group*k + key_id]`` for 8-value groups — parity with
-    shared_scan_128_linear_standard (simd_scan_shared_linear.cpp:57).  On
-    TPU the (k, W) layout is the native efficient one; the interleave is
-    a relayout of the kernel output (the reference needed a separate
-    kernel only because its outputs stream straight to DRAM).  The
-    16-lane -> stride-8 lane spread the relayout needs crashes the
-    hardware Mosaic compiler in every VECTOR-op form (strided store to a
-    non-128-minor memref, in-kernel jnp.repeat, minor-dim-merge reshape,
-    16-lane sliced strided stores) even though jax.export lowering
-    accepts some of them — but it IS expressible on the MXU as a
-    permutation matmul (ops/linear.py, interleave_mxu_tiles), which is
-    the dispatched path for k % 4 == 0; other k fall back to the chunked
-    XLA stack relayout.  Measured costs for every formulation:
-    bench_results/linear_v5e_512m.csv.
-    """
-    from shared_simd_scan_tpu.ops.linear import (
-        _mxu_large_supported,
-        _mxu_supported,
-        interleave_device,
-    )
-
-    traced = isinstance(keys, jax.core.Tracer)
-    if not traced:
-        keys = np.asarray(keys, dtype=np.uint32)
-    k = int(keys.shape[0])
-    if _mxu_supported(k) or _mxu_large_supported(k):
-        # fused single-pass words export + uint8 view (same bitcast the
-        # MXU relayout's uint8 form pays; the scan+interleave themselves
-        # skip the (k, W) bits round-trip).  Concrete keys pick the
-        # interval/static bodies; traced keys the bit-sliced one.
-        words = shared_scan_linear_words_device(
-            dev, keys, tb=tb, interpret=interpret
-        )
-        nbytes = (dev.n + 7) // 8
-        return jax.lax.bitcast_convert_type(words, jnp.uint8).reshape(
-            -1
-        )[: nbytes * k]
-    keys = jnp.asarray(keys, jnp.uint32)
-    bits, _ = shared_scan_device(dev, keys, tb=tb, interpret=interpret)  # (k, W)
-    return interleave_device(bits, (dev.n + 7) // 8, interpret=interpret)
+    shared_scan_128_linear_standard (simd_scan_shared_linear.cpp:57).  The
+    (k, W) layout is the native one; the interleave is a byte transpose of
+    the shared scan's output (the reference needed a separate kernel only
+    because its outputs stream straight to DRAM)."""
+    bits, _ = shared_scan_device(dev, keys)
+    return interleave_linear(bits, (dev.n + 7) // 8)
 
 
-def shared_scan_linear_words_device(
-    dev: DeviceColumn, keys, tb: int | None = None, interpret: bool = False
-) -> jax.Array:
+def shared_scan_linear_words_device(dev: DeviceColumn, keys) -> jax.Array:
     """Linear shared scan -> uint32[nbytes * k / 4]: the SAME linear byte
-    stream viewed 4 little-endian bytes at a time — byte-identical HBM
-    contents to :func:`shared_scan_linear_device`, and the form large
-    device-side consumers should use: the uint8 device view costs a
-    16.5x-padded bitcast materialization (~100 ms per 512 MiB query,
-    measured — see ops/linear.py).  Host exports reinterpret for free
-    (np.view(np.uint8)).  Requires k % 4 == 0 (byte count divisible
-    by 4)."""
-    from shared_simd_scan_tpu.ops.linear import (
-        _mxu_large_supported,
-        _mxu_supported,
-        interleave_xla_stack,
-    )
-
-    traced = isinstance(keys, jax.core.Tracer)
-    if not traced:
-        keys = np.asarray(keys, dtype=np.uint32)
-    k = int(keys.shape[0])
+    stream viewed 4 little-endian bytes at a time (host exports
+    reinterpret it for free with np.view(np.uint8)).  Requires
+    k % 4 == 0 (byte count divisible by 4)."""
+    k = int(keys.shape[0] if hasattr(keys, "shape") else len(keys))
     if k % 4:
         raise ValueError("words view needs k % 4 == 0; use the uint8 form")
-    if not traced and _mxu_supported(k):
-        lo = _consecutive_lo(keys)
-        if lo is not None:
-            # fused single-pass kernel: scan + interleave in-register,
-            # no (k, W) bits round-trip (measured vs the two-kernel
-            # path in bench_results/linear_v5e_512m.csv)
-            out, _ = interval_scan_linear_words_tiles(
-                dev.tiles, lo, k, dev.width, dev.n, tb=tb,
-                interpret=interpret,
-            )
-        else:
-            # ANY concrete key set: same fusion with the static AND-DAG
-            # body (key-agnostic, like simd_scan_shared_linear.cpp)
-            out, _ = static_scan_linear_words_tiles(
-                dev.tiles, keys, dev.width, dev.n, tb=tb,
-                interpret=interpret,
-            )
-        return out
-    if not traced and _mxu_large_supported(k):
-        lo = _consecutive_lo(keys)
-        if lo is not None:
-            out, _ = interval_scan_linear_words_large(
-                dev.tiles, lo, k, dev.width, dev.n, tb=tb,
-                interpret=interpret,
-            )
-        else:
-            out, _ = static_scan_linear_words_large(
-                dev.tiles, keys, dev.width, dev.n, tb=tb,
-                interpret=interpret,
-            )
-        return out
-    if traced and _mxu_supported(k):
-        # TRACED keys: the fused bit-sliced body — one compiled program
-        # for any runtime key values, still no (k, W) bits round-trip
-        out, _ = bitsliced_scan_linear_words_tiles(
-            dev.tiles, keys, dev.width, dev.n, tb=tb, interpret=interpret
-        )
-        return out
-    if traced and _mxu_large_supported(k):
-        out, _ = bitsliced_scan_linear_words_large(
-            dev.tiles, keys, k, dev.width, dev.n, tb=tb,
-            interpret=interpret,
-        )
-        return out
-    # every MXU-supported k returned through a fused tier above (traced
-    # and concrete both covered) — only the stack fallback remains for k
-    # outside all MXU tiers (k % 4 == 0 with k > 16 and not in either
-    # hierarchy range).  The explicit two-kernel comparator lives in the
-    # bench harness (relayout='twokernel'), not here.
-    bits, _ = shared_scan_device(dev, keys, tb=tb, interpret=interpret)
-    nbytes = (dev.n + 7) // 8
-    out = interleave_xla_stack(bits, nbytes)
-    return jax.lax.bitcast_convert_type(
-        out.reshape(-1, 4), jnp.uint32
-    )
-
-
-def _interval_linear_kernel(
-    off_ref, lo_ref, perm_ref, in_ref, out_ref, cnt_ref,
-    *, width, tb, n, k, gateless, dot,
-):
-    """FUSED interval scan + MXU linear interleave, one grid step:
-    block tile i -> (tb, 128k) linear words + count partials.
-
-    Builds the k per-key word rows exactly like the single-chunk
-    interval kernel (SWAPMOVE bit transpose of one-hot mask bytes), then
-    interleaves them in-register (linear._mxu_interleave_rows) — the
-    (k, W) bits never round-trip through HBM (saves 2*k*W*4 bytes of
-    traffic vs scan-then-relayout and overlaps the scan's VPU work with
-    the permutation dots).  The validity word is ANDed unconditionally
-    (span-kernel discipline: one op per row beats duplicating the whole
-    body under pl.when)."""
-    from shared_simd_scan_tpu.ops.linear import _mxu_interleave_rows
-
-    i = pl.program_id(0)
-    lo = lo_ref[0, 0]
-    if k > 8:
-        ms = [
-            _onehot32(v - lo, gateless)
-            for _, v in _unpack_block_values(in_ref, width)
-        ]
-    rounds = (k + 7) // 8
-    rows = []
-    for c8 in range(rounds):
-        byte = c8 % 4
-        x = []
-        for t in range(8):
-            acc = None
-            for g in range(4):
-                r = 8 * g + t
-                if k > 8:
-                    m = ms[r]
-                else:
-                    m = _onehot32(_unpack_value_at(in_ref, width, r) - lo,
-                                  gateless)
-                mb = _mask_byte(m, byte, g)
-                acc = mb if acc is None else acc | mb
-            x.append(acc)
-        rows.extend(_transpose8x8_bytes(x)[: min(8, k - 8 * c8)])
-
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
-    r0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-    l0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-    blk = off_ref[0, 0] + (i * tb + r0) * LANES + l0
-    valid = jnp.where(
-        blk < full,
-        jnp.uint32(0xFFFFFFFF),
-        jnp.where(blk == full, jnp.uint32((1 << rem) - 1 if rem else 0),
-                  jnp.uint32(0)),
-    )
-    rows = [r & valid for r in rows]
-    for j, r in enumerate(rows):
-        cnt_ref[0, j] = jnp.sum(
-            jax.lax.population_count(r).astype(jnp.int32), axis=0
-        )
-    out_ref[...] = _mxu_interleave_rows(rows, perm_ref[...], k, dot)
-
-
-def _interval_linear_tb(
-    b1: int, width: int, k: int, dot: str, tb: int | None = None
-) -> int:
-    """THE tile-size rule for the fused linear kernel — used by the
-    kernel impl AND the op-fit step accounting (scripts/run_op_fit.py),
-    so a budget retune cannot desync the fitted step-overhead term.
-
-    VMEM per sublane row: in 2*width words, out 2*128k words, one-hot
-    masks (32 when materialized) + quad/plane/dot transients (~3*128k
-    equivalents across z2/d/acc) — conservative static budget with the
-    resident perm ((128k)^2) subtracted from the 12 MB pool."""
-    perm_bytes = (128 * k) ** 2 * {"s8": 1, "bf16": 2, "f32": 4}[dot]
-    per_tb = 512 * (2 * width + (32 if k > 8 else 12)) + 128 * k * 4 * 5
-    headroom = 12_000_000 - perm_bytes
-    if headroom < 8 * per_tb:
-        # e.g. k=16 f32: the 16.8 MB perm alone exceeds scoped VMEM —
-        # reject at trace time instead of a hardware-only compile error
-        raise ValueError(
-            f"fused linear kernel VMEM budget: perm ({perm_bytes/1e6:.1f} MB"
-            f" at k={k}, dot={dot!r}) leaves no room for a tb=8 tile; use"
-            " dot='s8'/'bf16', or export bits via shared_scan_device + ops.linear"
-        )
-    cap = max(8, (headroom // per_tb) // 8 * 8)
-    return _pick_tb(b1, tb if tb is not None else min(128, cap))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "width", "n", "tb", "interpret", "gateless", "dot"),
-)
-def _interval_linear_tiles_impl(
-    tiles, lo, k, width, n, tb, interpret, gateless, dot, block_offset=0
-):
-    from shared_simd_scan_tpu.ops.linear import _perm_matrix
-
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    tb = _interval_linear_tb(b1, width, k, dot, tb)
-    lo2 = jnp.asarray(lo, jnp.uint32).reshape(1, 1)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    perm = _perm_matrix(k, dot)
-    out, cnt = pl.pallas_call(
-        functools.partial(
-            _interval_linear_kernel,
-            width=width, tb=tb, n=n, k=k, gateless=gateless, dot=dot,
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((b1, 128 * k), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        ),
-        grid=(b1 // tb,),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (LANES * k, LANES * k), lambda i: (0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (tb, 128 * k), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ),
-        interpret=interpret,
-    )(off, lo2, perm, tiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    return out, counts
-
-
-def interval_scan_linear_words_tiles(
-    tiles: jax.Array,
-    lo: jax.Array,
-    k: int,
-    width: int,
-    n: int,
-    tb: int | None = None,
-    interpret: bool = False,
-    dot: str = "s8",
-    block_offset: jax.Array | int = 0,
-    flat: bool = True,
-) -> tuple[jax.Array, jax.Array]:
-    """Fused interval shared scan -> (uint32[nbytes*k/4] linear words,
-    (k,) uint32 counts) for the consecutive keys lo..lo+k-1 (traced lo
-    fine; k must satisfy linear._mxu_supported).
-
-    Single pass over the packed column: the per-key bitvector words are
-    built and byte-interleaved in-register, never written to HBM in
-    (k, W) form.  ``dot`` picks the MXU format ("s8" default: int8 dots
-    measured 1.33x the bf16 relayout rate on v5e).  ``flat=False``
-    returns the device-tile form (b1, 128k) unsliced — the shard-local
-    shape the sharded wrapper stitches along the block axis."""
-    from shared_simd_scan_tpu.ops.linear import _mxu_supported
-
-    if not _mxu_supported(k):
-        raise ValueError(f"fused linear interval scan needs k in 4/8/12/16, got {k}")
-    gateless = shift_saturates(interpret)
-    out, counts = _interval_linear_tiles_impl(
-        tiles, lo, k, width, n, tb, interpret, gateless, dot, block_offset
-    )
-    if not flat:
-        return out, counts
-    nwords = ((n + 7) // 8) * k // 4
-    return out.reshape(-1)[:nwords], counts
-
-
-def _fused_linear_hier(level1_fn, k: int, n: int, interpret: bool, dot: str):
-    """Shared level-2 driver for every fused HIERARCHICAL linear export
-    (interval / static / traced level-1 bodies): run level1_fn(G, gs)
-    per key group (G-th group of gs keys -> padded words + counts),
-    stack the group streams, and apply the g = gs/4 word stream
-    interleave.  One home so the group/stream plumbing cannot drift
-    between the three tiers."""
-    from shared_simd_scan_tpu.ops.linear import (
-        _hier_group,
-        interleave_streams_mxu_words,
-    )
-
-    gs = _hier_group(k)
-    groups, counts = [], []
-    for G in range(k // gs):
-        out_g, cnt_g = level1_fn(G, gs)
-        groups.append(out_g.reshape(-1))
-        counts.append(cnt_g)
-    streams = jnp.stack(groups)
-    nwords = ((n + 7) // 8) * k // 4
-    out = interleave_streams_mxu_words(
-        streams, gs // 4, nwords, interpret=interpret, dot=dot
-    )
-    return out, jnp.concatenate(counts)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("k", "width", "n", "tb", "interpret", "dot")
-)
-def interval_scan_linear_words_large(
-    tiles: jax.Array,
-    lo,
-    k: int,
-    width: int,
-    n: int,
-    tb: int | None = None,
-    interpret: bool = False,
-    dot: str = "s8",
-) -> tuple[jax.Array, jax.Array]:
-    """Fused HIERARCHICAL linear export for consecutive keys lo..lo+k-1,
-    linear._mxu_large_supported k (traced lo fine): level 1 runs the
-    fused interval-scan+interleave kernel per key group (8 keys at
-    g=2-word streams, or 4 at g=1 for the k = 4m odd-m column — the
-    packed column is read k/gs times, but the (k, W) bits never exist
-    in HBM), level 2 is the stream interleave.  vs routing through
-    bits: saves the 2x bits round-trip and the scan re-runs at
-    interval-kernel cost (~0.8 ms/group) instead of the bit-sliced
-    tier's."""
-    from shared_simd_scan_tpu.ops.linear import _mxu_large_supported
-
-    assert _mxu_large_supported(k)
-    lo = jnp.asarray(lo, jnp.uint32)
-    return _fused_linear_hier(
-        lambda G, gs: interval_scan_linear_words_tiles(
-            tiles, lo + jnp.uint32(gs * G), gs, width, n, tb=tb,
-            interpret=interpret, dot=dot, flat=False,
-        ),
-        k, n, interpret, dot,
-    )
-
-
-def _static_linear_kernel(
-    off_ref, perm_ref, in_ref, out_ref, cnt_ref, *, width, tb, n, keys, dot,
-):
-    """FUSED static AND-DAG scan + MXU linear interleave, one grid step:
-    block tile i -> (tb, 128k) linear words + count partials, for ANY
-    concrete key set (the key-agnostic analog of
-    :func:`_interval_linear_kernel` — parity role:
-    simd_scan_shared_linear.cpp:9-82, which is key-agnostic too).
-
-    The per-key word rows come from the shared AND-DAG over the block's
-    bit planes (exactly the static bit-sliced tier's body) instead of
-    the interval kernel's one-hot SWAPMOVE; the rows are then
-    interleaved in-register (linear._mxu_interleave_rows), so the
-    (k, W) bits never round-trip through HBM.  Out-of-domain keys
-    produce constant-zero rows; the validity word is ANDed
-    unconditionally (span-kernel discipline)."""
-    from shared_simd_scan_tpu.ops.linear import _mxu_interleave_rows
-
-    i = pl.program_id(0)
-    k = len(keys)
-    dom = 1 << width
-    zero = jnp.zeros((tb, LANES), jnp.uint32)
-    vs = [v for _, v in _unpack_block_values(in_ref, width)]
-    planes = _transpose_bitplanes(vs, width)
-    memo: dict = {}
-    rows = [
-        _combo(planes, 0, width, int(key), memo) if int(key) < dom else zero
-        for key in keys
-    ]
-
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
-    r0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-    l0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-    blk = off_ref[0, 0] + (i * tb + r0) * LANES + l0
-    valid = jnp.where(
-        blk < full,
-        jnp.uint32(0xFFFFFFFF),
-        jnp.where(blk == full, jnp.uint32((1 << rem) - 1 if rem else 0),
-                  jnp.uint32(0)),
-    )
-    rows = [r & valid for r in rows]
-    for j, r in enumerate(rows):
-        cnt_ref[0, j] = jnp.sum(
-            jax.lax.population_count(r).astype(jnp.int32), axis=0
-        )
-    out_ref[...] = _mxu_interleave_rows(rows, perm_ref[...], k, dot)
-
-
-def _fused_linear_tb(
-    b1: int, width: int, k: int, dot: str, live: int, tb: int | None,
-    what: str,
-) -> int:
-    """THE shared tile-size rule for the fused scan+interleave kernels
-    whose bodies carry per-key live vectors (static DAG / traced plane
-    fold) — one home so a headroom retune cannot desync the siblings
-    (the round-3 scoped-vmem lesson: these budgets must change
-    together).  ``live`` is the body's peak live-vector count: the
-    MEASURED DAG liveness for concrete keys (a flat guess under-counted
-    wide widths ~2.6x), width + 8 for the rolling plane fold.  The
-    interval kernel keeps its own rule (`_interval_linear_tb`): its
-    one-hot body has no per-key live term and the op-fit step
-    accounting depends on that exact formula."""
-    perm_bytes = (128 * k) ** 2 * {"s8": 1, "bf16": 2, "f32": 4}[dot]
-    per_tb = (
-        512 * (2 * width + width + 32 + live + 64 + 2 * k)
-        + 128 * k * 4 * 5
-    )
-    headroom = 12_000_000 - perm_bytes
-    if headroom < 8 * per_tb:
-        raise ValueError(
-            f"fused {what} linear kernel VMEM budget: perm"
-            f" ({perm_bytes / 1e6:.1f} MB at k={k}, dot={dot!r}) plus"
-            f" {live} live body vectors leave no room for a tb=8 tile;"
-            " use dot='s8', or export bits via shared_scan_device + ops.linear"
-        )
-    cap = max(8, (headroom // per_tb) // 8 * 8)
-    return _pick_tb(b1, tb if tb is not None else min(128, cap))
-
-
-def _static_linear_tb(
-    b1: int, width: int, keys: tuple, dot: str, tb: int | None = None
-) -> int:
-    return _fused_linear_tb(
-        b1, width, len(keys), dot,
-        _static_dag_liveness(width, keys), tb, "static",
-    )
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("keys", "width", "n", "tb", "interpret", "dot"),
-)
-def _static_linear_tiles_impl(
-    tiles, keys: tuple, width, n, tb, interpret, dot, block_offset=0
-):
-    from shared_simd_scan_tpu.ops.linear import _perm_matrix
-
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    k = len(keys)
-    tb = _static_linear_tb(b1, width, keys, dot, tb)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    perm = _perm_matrix(k, dot)
-    out, cnt = pl.pallas_call(
-        functools.partial(
-            _static_linear_kernel,
-            width=width, tb=tb, n=n, keys=keys, dot=dot,
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((b1, 128 * k), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        ),
-        grid=(b1 // tb,),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (LANES * k, LANES * k), lambda i: (0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (tb, 128 * k), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ),
-        interpret=interpret,
-    )(off, perm, tiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    return out, counts
-
-
-def static_scan_linear_words_tiles(
-    tiles: jax.Array,
-    keys,
-    width: int,
-    n: int,
-    tb: int | None = None,
-    interpret: bool = False,
-    dot: str = "s8",
-    block_offset: jax.Array | int = 0,
-    flat: bool = True,
-) -> tuple[jax.Array, jax.Array]:
-    """Fused static shared scan -> (uint32[nbytes*k/4] linear words,
-    (k,) uint32 counts) for ANY concrete key set (k must satisfy
-    linear._mxu_supported).  Single pass over the packed column: the
-    per-key rows come from the shared AND-DAG, interleaved in-register —
-    the key-agnostic sibling of :func:`interval_scan_linear_words_tiles`
-    (use that for consecutive runs: its one-hot body is cheaper)."""
-    from shared_simd_scan_tpu.ops.linear import _mxu_supported
-
-    if isinstance(keys, jax.core.Tracer):
-        raise TypeError("static_scan_linear_words_tiles requires concrete keys")
-    arr = np.asarray(keys, dtype=np.uint32)
-    k = int(arr.shape[0])
-    if not _mxu_supported(k):
-        raise ValueError(f"fused linear static scan needs k in 4/8/12/16, got {k}")
-    out, counts = _static_linear_tiles_impl(
-        tiles, tuple(int(v) for v in arr), width, n, tb, interpret, dot,
-        block_offset,
-    )
-    if not flat:
-        return out, counts
-    nwords = ((n + 7) // 8) * k // 4
-    return out.reshape(-1)[:nwords], counts
-
-
-def static_scan_linear_words_large(
-    tiles: jax.Array,
-    keys,
-    width: int,
-    n: int,
-    tb: int | None = None,
-    interpret: bool = False,
-    dot: str = "s8",
-) -> tuple[jax.Array, jax.Array]:
-    """Fused HIERARCHICAL linear export for ANY concrete key set with
-    linear._mxu_large_supported k: level 1 runs the fused static-DAG
-    scan+interleave kernel per key group (8 keys, or 4 for the k = 4m
-    odd-m column; caller order preserved — the linear byte contract is
-    order-sensitive), level 2 is the stream interleave.  The (k, W)
-    bits never exist in HBM; vs the bits round-trip this saves its 2x
-    traffic and the relayout pass (measured: bench_results/linear_k32/
-    k64 CSVs)."""
-    from shared_simd_scan_tpu.ops.linear import _mxu_large_supported
-
-    if isinstance(keys, jax.core.Tracer):
-        raise TypeError("static_scan_linear_words_large requires concrete keys")
-    arr = np.asarray(keys, dtype=np.uint32)
-    k = int(arr.shape[0])
-    assert _mxu_large_supported(k)
-    return _fused_linear_hier(
-        lambda G, gs: static_scan_linear_words_tiles(
-            tiles, arr[gs * G : gs * G + gs], width, n, tb=tb,
-            interpret=interpret, dot=dot, flat=False,
-        ),
-        k, n, interpret, dot,
-    )
-
-
-def _bitsliced_linear_kernel(
-    off_ref, keys_ref, perm_ref, in_ref, out_ref, cnt_ref,
-    *, width, tb, n, k, dot,
-):
-    """FUSED bit-sliced scan + MXU linear interleave for TRACED keys:
-    the runtime-keys sibling of :func:`_static_linear_kernel` — per-key
-    rows come from the scalar plane fold over SMEM keys (the bit-sliced
-    tier's body, any key values at run time, one compiled program), then
-    interleave in-register.  Out-of-domain keys produce zero rows via
-    the whole-key kill mask."""
-    from shared_simd_scan_tpu.ops.linear import _mxu_interleave_rows
-
-    i = pl.program_id(0)
-    vs = [v for _, v in _unpack_block_values(in_ref, width)]
-    planes = _transpose_bitplanes(vs, width)
-    dom = jnp.uint32(1 << width)
-    one = jnp.uint32(1)
-    rows = []
-    for j in range(k):
-        key = keys_ref[j, 0]
-        km = jnp.where(key < dom, jnp.uint32(0xFFFFFFFF), jnp.uint32(0))
-        acc = None
-        for p in range(width):
-            mask = ((key >> jnp.uint32(p)) & one) - one
-            term = planes[p] ^ mask
-            acc = term if acc is None else acc & term
-        rows.append(acc & km)
-
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
-    r0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-    l0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-    blk = off_ref[0, 0] + (i * tb + r0) * LANES + l0
-    valid = jnp.where(
-        blk < full,
-        jnp.uint32(0xFFFFFFFF),
-        jnp.where(blk == full, jnp.uint32((1 << rem) - 1 if rem else 0),
-                  jnp.uint32(0)),
-    )
-    rows = [r & valid for r in rows]
-    for j, r in enumerate(rows):
-        cnt_ref[0, j] = jnp.sum(
-            jax.lax.population_count(r).astype(jnp.int32), axis=0
-        )
-    out_ref[...] = _mxu_interleave_rows(rows, perm_ref[...], k, dot)
-
-
-def _bitsliced_linear_tb(
-    b1: int, width: int, k: int, dot: str, tb: int | None = None
-) -> int:
-    # plane-fold live set: the width planes + one rolling acc (+ slack)
-    return _fused_linear_tb(b1, width, k, dot, width + 8, tb, "traced")
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("k", "width", "n", "tb", "interpret", "dot"),
-)
-def _bitsliced_linear_tiles_impl(
-    tiles, keys, k, width, n, tb, interpret, dot, block_offset=0
-):
-    from shared_simd_scan_tpu.ops.linear import _perm_matrix
-
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    tb = _bitsliced_linear_tb(b1, width, k, dot, tb)
-    keys2 = keys.astype(jnp.uint32).reshape(k, 1)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    perm = _perm_matrix(k, dot)
-    out, cnt = pl.pallas_call(
-        functools.partial(
-            _bitsliced_linear_kernel,
-            width=width, tb=tb, n=n, k=k, dot=dot,
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((b1, 128 * k), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        ),
-        grid=(b1 // tb,),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((k, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (LANES * k, LANES * k), lambda i: (0, 0),
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (tb, 128 * k), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ),
-        interpret=interpret,
-    )(off, keys2, perm, tiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    return out, counts
-
-
-def bitsliced_scan_linear_words_tiles(
-    tiles: jax.Array,
-    keys,
-    width: int,
-    n: int,
-    tb: int | None = None,
-    interpret: bool = False,
-    dot: str = "s8",
-    block_offset: jax.Array | int = 0,
-    flat: bool = True,
-) -> tuple[jax.Array, jax.Array]:
-    """Fused shared scan -> (uint32[nbytes*k/4] linear words, (k,)
-    uint32 counts) for TRACED (runtime) keys — one compiled program for
-    any key values; k must satisfy linear._mxu_supported.  Concrete
-    callers should prefer the interval/static siblings (cheaper
-    bodies); this tier exists so runtime-key queries skip both the
-    recompile AND the (k, W) bits round-trip."""
-    from shared_simd_scan_tpu.ops.linear import _mxu_supported
-
-    keys = jnp.asarray(keys, jnp.uint32)
-    k = int(keys.shape[0])
-    if not _mxu_supported(k):
-        raise ValueError(f"fused linear traced scan needs k in 4/8/12/16, got {k}")
-    out, counts = _bitsliced_linear_tiles_impl(
-        tiles, keys, k, width, n, tb, interpret, dot, block_offset
-    )
-    if not flat:
-        return out, counts
-    nwords = ((n + 7) // 8) * k // 4
-    return out.reshape(-1)[:nwords], counts
-
-
-@functools.partial(
-    jax.jit, static_argnames=("k", "width", "n", "tb", "interpret", "dot")
-)
-def bitsliced_scan_linear_words_large(
-    tiles: jax.Array,
-    keys,
-    k: int,
-    width: int,
-    n: int,
-    tb: int | None = None,
-    interpret: bool = False,
-    dot: str = "s8",
-) -> tuple[jax.Array, jax.Array]:
-    """Fused HIERARCHICAL linear export for TRACED keys,
-    linear._mxu_large_supported k: level 1 runs the fused traced-keys
-    kernel per key group (slicing a traced key vector is free), level 2
-    the stream interleave — runtime-key large-k export with no bits
-    round-trip and one compiled program per (k, width, n)."""
-    from shared_simd_scan_tpu.ops.linear import _mxu_large_supported
-
-    assert _mxu_large_supported(k)
-    keys = jnp.asarray(keys, jnp.uint32)
-    return _fused_linear_hier(
-        lambda G, gs: bitsliced_scan_linear_words_tiles(
-            tiles, keys[gs * G : gs * G + gs], width, n, tb=tb,
-            interpret=interpret, dot=dot, flat=False,
-        ),
-        k, n, interpret, dot,
-    )
-
-
-def popcount_bits(bits: jax.Array) -> jax.Array:
-    """Hit counts from canonical bitvector words (axis -1)."""
-    return jnp.sum(jax.lax.population_count(bits).astype(jnp.int32), axis=-1)
-
-
-__all__ = [
-    "shared_scan_tiles",
-    "shared_scan_chunked_tiles",
-    "shared_scan_bitsliced_tiles",
-    "windowed_scan_tiles",
-    "pick_concrete_tier",
-    "shared_scan_device",
-    "scan_device",
-    "shared_scan_linear_device",
-    "shared_scan_linear_words_device",
-    "interval_scan_linear_words_tiles",
-    "interval_scan_linear_words_large",
-    "static_scan_linear_words_tiles",
-    "static_scan_linear_words_large",
-    "bitsliced_scan_linear_words_tiles",
-    "bitsliced_scan_linear_words_large",
-    "histogram_tiles",
-    "histogram_dag_tiles",
-    "histogram_device",
-    "bits_to_canonical",
-    "popcount_bits",
-]
+    out = shared_scan_linear_device(dev, keys)
+    return jax.lax.bitcast_convert_type(out.reshape(-1, 4), jnp.uint32)
 
 
 # ---------------------------------------------------------------------------
@@ -1157,22 +303,17 @@ __all__ = [
 # The reference's shared-scan benchmark (predicates 0..k-1,
 # src/benchmark.cpp:205-209) and the common DB decomposition of a range
 # predicate both use consecutive keys.  For that case the per-value match
-# mask against ALL keys of a 32-key chunk is ONE variable shift —
-# ``1 << (v - lo)`` — instead of k compares (out-of-chunk values, including
-# v < lo via unsigned wraparound, saturate the shift to 0; see
-# :func:`shift_saturates` for the guard).  The per-key bitvectors then fall
-# out of a cross-vector bit-slice transpose: masks of values
+# mask against ALL keys of a 32-key window is ONE variable shift —
+# ``1 << (v - lo)`` — instead of k compares (out-of-window values,
+# including v < lo via unsigned wraparound, give a shift of 32 or more,
+# which XLA defines as 0; see :func:`_onehot32`).  The per-key bitvectors
+# then fall out of a cross-vector bit-slice transpose: masks of values
 # {t, t+8, t+16, t+24} are packed into the four bytes of word X_t, and
 # three SWAPMOVE stages (the classic bit-matrix transpose, 12 swaps of 6
 # ops) turn X_0..X_7 directly into the eight per-key bitvector words — the
 # movemask/distribute phase of the reference (simd_scan.cpp:132,145) has no
-# analog left at all.  ~11 ops/value at k=8 (vs ~27 for the general
-# compare kernel) and ~0.7 ops/value/key asymptotically.
-#
-# Keys beyond 32 ride a second *grid* dimension (one 32-key chunk per grid
-# step) so the bits output block stays (32, tb, 128) regardless of k —
-# large k no longer forces tiny sublane tiles.  Values are unpacked once
-# into VMEM scratch on each block tile's first chunk and reused.
+# analog left at all.  ~11 ops/value at k=8 (vs ~27 for the compare tier)
+# and ~0.7 ops/value/key asymptotically.
 
 
 def _swapmove(a, b, m, s):
@@ -1184,9 +325,9 @@ def _swapmove(a, b, m, s):
 def _transpose8x8_bytes(x):
     """Bit-slice 8x8 transpose over four independent byte channels.
 
-    Input: 8 uint32 vectors; byte g, bit u of x[t] = M_g[t][u].
-    Output: 8 uint32 vectors; byte g, bit t of y[j] = M_g[t][j].
-    12 SWAPMOVEs = 72 vector ops, no cross-byte traffic."""
+    Input: 8 uint32 words; byte g, bit u of x[t] = M_g[t][u].
+    Output: 8 uint32 words; byte g, bit t of y[j] = M_g[t][j].
+    12 SWAPMOVEs = 72 ops, no cross-byte traffic."""
     x = list(x)
     for i in (0, 2, 4, 6):
         x[i], x[i + 1] = _swapmove(x[i], x[i + 1], 0x55555555, 1)
@@ -1200,10 +341,11 @@ def _transpose8x8_bytes(x):
 def _onehot32(d, gateless: bool):
     """Match mask ``1 << d`` with bit j set iff d == j (0 for d >= 32).
 
-    The gateless form relies on vector shift-left saturating to zero for
-    amounts >= 32 — implementation-defined in HLO, verified per-backend by
-    :func:`shift_saturates`; the gated fallback costs one extra compare+
-    select per value."""
+    The gateless form relies on XLA's shift semantics: a logical shift by
+    the bit width or more yields 0 (pinned by a test on the CPU and a
+    check in chip_smoke.py on the card).  Inside a Triton program an
+    oversized LLVM shift is poison, so the Triton driver uses the gated
+    form (one extra compare+select per value)."""
     if gateless:
         return jnp.uint32(1) << d
     return jnp.where(
@@ -1225,471 +367,106 @@ def _mask_byte(m, c8: int, g: int):
     return m & jnp.uint32(0xFF << (8 * g))
 
 
-def _store_rows_tail_masked(
-    off_ref, i, tb, n, rows, bits_ref, cnt_ref, base_row: int = 0
-):
-    """Store per-key words + per-step count partials, masking the validity
-    tail only in the grid step that contains the first padding block
-    (padding blocks are zero-filled; key 0 of a chunk could otherwise
-    match them).  ``rows`` is the static list of (tb, LANES) words; row j
-    is written to bits_ref[base_row + j] / cnt_ref[0, base_row + j]."""
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
+def _interval_rows(words, lo, *, width, k, gateless):
+    """k match words for keys lo..lo+k-1 (``lo`` is a 1-entry operand).
 
-    def _store(masked: bool):
-        if masked:
-            r0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-            l0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-            blk = off_ref[0, 0] + (i * tb + r0) * LANES + l0
-            valid = jnp.where(
-                blk < full,
-                jnp.uint32(0xFFFFFFFF),
-                jnp.where(
-                    blk == full,
-                    jnp.uint32((1 << rem) - 1 if rem else 0),
-                    jnp.uint32(0),
-                ),
-            )
-        for j, word in enumerate(rows):
-            w = word & valid if masked else word
-            bits_ref[base_row + j] = w
-            cnt_ref[0, base_row + j] = jnp.sum(
-                jax.lax.population_count(w).astype(jnp.int32), axis=0
-            )
-
-    tile_end = off_ref[0, 0] + (i + 1) * tb * LANES
-    needs_mask = tile_end > full
-    pl.when(needs_mask)(lambda: _store(True))
-    pl.when(jnp.logical_not(needs_mask))(lambda: _store(False))
-
-
-
-def _interval_scan_kernel(
-    off_ref, lo_ref, in_ref, bits_ref, cnt_ref, *scratch_refs,
-    width, tb, n, nchunks, krows, gateless,
-):
-    """Grid step (i, c): block tile i x key chunk c -> bits (krows, tb, 128).
-
-    krows keys per chunk step (the largest of 32/16/8 dividing k, so
-    output padding never exceeds 7 rows); nchunks = ceil(k / krows)."""
-    i = pl.program_id(0)
-    lo = lo_ref[0, 0]
-    if nchunks > 1:
-        # unpack once per block tile into scratch; chunks (fast grid dim)
-        # reuse it — the input block is not re-fetched while i is unchanged.
-        c = pl.program_id(1)
-        scratch = scratch_refs[0]
-
-        @pl.when(c == 0)
-        def _fill():
-            for r, v in _unpack_block_values(in_ref, width):
-                scratch[r] = v
-
-        lo_c = lo + jnp.uint32(krows) * c.astype(jnp.uint32)
-        ms_windows = [
-            [_onehot32(scratch[r] - lo_c, gateless) for r in range(BLOCK_VALUES)]
+    32-key windows: one one-hot mask per (value, window); rounds of 8 keys
+    take one mask byte per value into the 8x8 bit transpose.  At k <= 8 the
+    masks are rebuilt where they are used (fewer live rows)."""
+    lo = lo[0]
+    stream = k <= 8
+    if not stream:
+        vs = unpack_values(words, width)
+        ms = [
+            [_onehot32(v - (lo + jnp.uint32(32 * w)), gateless) for v in vs]
+            for w in range((k + 31) // 32)
         ]
-        stream = False
-    elif krows > 8:
-        # one grid chunk, possibly several 32-key mask windows (krows up
-        # to 48): values unpacked once, one mask set per window
-        nwin = (krows + 31) // 32
-        if nwin == 1:
-            ms_windows = [
-                [_onehot32(v - lo, gateless)
-                 for _, v in _unpack_block_values(in_ref, width)]
-            ]
-        else:
-            vs = [v for _, v in _unpack_block_values(in_ref, width)]
-            ms_windows = [
-                [_onehot32(v - (lo + jnp.uint32(32 * w)), gateless) for v in vs]
-                for w in range(nwin)
-            ]
-        stream = False
-    else:
-        stream = True  # single round: stream mask creation inside the X build
-
-    rounds = (krows + 7) // 8
     rows = []
-    for c8 in range(rounds):
-        win, byte = c8 // 4, c8 % 4
+    for c8 in range((k + 7) // 8):
+        win, byte = divmod(c8, 4)
         x = []
         for t in range(8):
             acc = None
             for g in range(4):
                 r = 8 * g + t
                 if stream:
-                    m = _onehot32(_unpack_value_at(in_ref, width, r) - lo, gateless)
+                    m = _onehot32(unpack_value_at(words, width, r) - lo, gateless)
                 else:
-                    m = ms_windows[win][r]
+                    m = ms[win][r]
                 mb = _mask_byte(m, byte, g)
                 acc = mb if acc is None else acc | mb
             x.append(acc)
-        rows.extend(_transpose8x8_bytes(x)[: min(8, krows - 8 * c8)])
-
-    _store_rows_tail_masked(off_ref, i, tb, n, rows, bits_ref, cnt_ref)
-
-
-# Per-backend cache for the vector-shift saturation canary.
-_SHIFT_SEMANTICS: dict[str, bool] = {}
+        rows.extend(_transpose8x8_bytes(x)[: min(8, k - 8 * c8)])
+    return rows
 
 
-def _shift_canary_kernel(base_ref, a_ref, o_ref):
-    # base is an operand (all-ones), not a captured constant: Mosaic
-    # requires kernel-captured arrays to be passed as inputs.
-    o_ref[...] = base_ref[...] << a_ref[...]
-
-
-def shift_saturates(interpret: bool = False) -> bool:
-    """True iff the active backend's vector shift-left yields 0 for every
-    amount >= 32 (checked on amounts spanning [32, 2^32) including the
-    wraparound band just below 2^32).
-
-    HLO declares oversized shifts implementation-defined; the gateless
-    interval mask depends on saturate-to-zero, so this canary runs once per
-    backend and the kernels fall back to a gated mask (-1 compare+select
-    per value) if it ever fails after a compiler upgrade."""
-    if jax.default_backend() == "cpu":
-        interpret = True  # compiled Pallas does not exist on the CPU backend
-    backend = jax.default_backend() + ("/interpret" if interpret else "")
-    hit = _SHIFT_SEMANTICS.get(backend)
-    if hit is not None:
-        return hit
-    with jax.ensure_compile_time_eval():
-        ok = _run_shift_canary(interpret)
-    _SHIFT_SEMANTICS[backend] = ok
-    return ok
-
-
-def _run_shift_canary(interpret: bool) -> bool:
-    amounts = jnp.broadcast_to(
-        jnp.array(
-            [32, 33, 63, 64, 255, 1024, 1 << 20, 1 << 31,
-             (1 << 32) - 32, (1 << 32) - 24, (1 << 32) - 8, (1 << 32) - 1,
-             40, 96, 4096, 1 << 16],
-            jnp.uint32,
-        ).reshape(2, 8, 1),
-        (2, 8, LANES // 2),
-    ).reshape(8, LANES)
-    out = pl.pallas_call(
-        _shift_canary_kernel,
-        out_shape=jax.ShapeDtypeStruct((8, LANES), jnp.uint32),
-        interpret=interpret,
-    )(jnp.ones((8, LANES), jnp.uint32), amounts)
-    return bool(jax.device_get(jnp.all(out == 0)))
-
-
-def _interval_krows(k: int) -> int:
-    """Keys per chunk step.
-
-    k <= 32: one exact chunk.  33..48: still ONE chunk (rows padded to a
-    multiple of 8; the kernel uses a second 32-key mask window for rounds
-    beyond 4) — measured much faster than splitting into chunks, whose
-    extra grid steps and per-chunk mask recompute dominate at small k.
-    Beyond 48: the largest of 32/16/8 dividing k (else 8, padding the
-    last chunk by at most 7 rows)."""
-    if k <= 32:
-        return k
-    if k <= 48:
-        return ((k + 7) // 8) * 8
-    for g in (32, 16, 8):
-        if k % g == 0:
-            return g
-    return 8
-
-
-def default_interval_tb(width: int, k: int) -> int:
-    """Default sublane tile for the interval kernel.
-
-    VMEM working set per sublane row (x512 B): double-buffered input
-    (2*width), bits out (2*krows), masks (32 when materialized, else ~8
-    transients), scratch (32 when chunked)."""
-    krows = _interval_krows(k)
-    if k > 32:
-        extra = 32 + 32 + 12  # scratch + masks + transients
-    elif k > 8:
-        extra = 32 + 12
-    else:
-        extra = 16
-    per_tb = 512 * (2 * width + 2 * krows + extra)
-    cap = max(8, (12_000_000 // per_tb) // 8 * 8)
-    return min(256, cap)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("width", "n", "k", "tb", "interpret", "gateless")
-)
-def _interval_scan_tiles_impl(
-    tiles, lo, k, width, n, tb, interpret, gateless, block_offset,
-):
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    krows = _interval_krows(k)
-    nchunks = (k + krows - 1) // krows
-    kpad = nchunks * krows
-    tb = _pick_tb(b1, tb if tb is not None else default_interval_tb(width, k))
-    grid = (b1 // tb, nchunks)
-    lo2 = jnp.asarray(lo, jnp.uint32).reshape(1, 1)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    bits, cnt = pl.pallas_call(
-        functools.partial(
-            _interval_scan_kernel,
-            width=width, tb=tb, n=n, nchunks=nchunks, krows=krows,
-            gateless=gateless,
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((kpad, b1, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, kpad, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i, c: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), lambda i, c: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i, c: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (krows, tb, LANES), lambda i, c: (c, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, krows, LANES), lambda i, c: (i, c, 0), memory_space=pltpu.VMEM
-            ),
-        ),
-        scratch_shapes=(
-            [pltpu.VMEM((BLOCK_VALUES, tb, LANES), jnp.uint32)]
-            if nchunks > 1
-            else []
-        ),
-        interpret=interpret,
-    )(off, lo2, tiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    if kpad != k:
-        bits, counts = bits[:k], counts[:k]
-    return bits, counts
+@functools.partial(jax.jit, static_argnames=("k", "width", "n", "backend"))
+def _interval_impl(tiles, lo, block_offset, *, k, width, n, backend):
+    body = functools.partial(
+        _interval_rows, width=width, k=k, gateless=backend == "xla"
+    )
+    lo = jnp.asarray(lo, jnp.uint32).reshape(1)
+    return _drive(body, tiles, n, (lo,), block_offset, backend, k)
 
 
 def interval_scan_tiles(
     tiles: jax.Array,
-    lo: jax.Array,
+    lo,
     k: int,
     width: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
+    backend: str | None = None,
 ) -> tuple[jax.Array, jax.Array]:
-    """Shared scan against the k consecutive keys lo..lo+k-1 (k <= 1024;
-    one 32-key chunk per grid step above k=32).
+    """Shared scan against the k consecutive keys lo..lo+k-1 (k <= 1024).
 
     Same output contract as :func:`shared_scan_tiles` with
-    keys = [lo, lo+1, ..., lo+k-1]; counts are uint32."""
+    keys = [lo, lo+1, ..., lo+k-1]; ``lo`` may be traced."""
     if not (1 <= k <= 1024):
         raise ValueError(f"interval scan supports 1 <= k <= 1024, got {k}")
-    # Canary runs eagerly (cached per backend) BEFORE tracing the kernel so
-    # the gateless/gated choice is a static specialization, never a traced op.
-    gateless = shift_saturates(interpret=interpret)
-    return _interval_scan_tiles_impl(
-        tiles, lo, k, width, n, tb, interpret, gateless, block_offset
+    return _interval_impl(
+        tiles, lo, block_offset, k=k, width=width, n=n,
+        backend=_backend("interval", backend, k),
     )
 
 
-def interval_scan_device(
-    dev: DeviceColumn, lo, k: int, tb: int | None = None, interpret: bool = False
-) -> tuple[jax.Array, jax.Array]:
+def interval_scan_device(dev: DeviceColumn, lo, k: int) -> tuple[jax.Array, jax.Array]:
     """Shared scan for consecutive keys lo..lo+k-1 -> ((k, W) bitvectors,
     (k,) counts) — the fast path for the reference benchmark's predicate
     set (0..k-1) and for range predicates decomposed per key."""
-    bits, counts = interval_scan_tiles(
-        dev.tiles, lo, k, dev.width, dev.n, tb=tb, interpret=interpret
-    )
+    bits, counts = interval_scan_tiles(dev.tiles, lo, k, dev.width, dev.n)
     return bits_to_canonical(bits, dev.n), counts
 
 
 # ---------------------------------------------------------------------------
-# Histogram: counts-only interval scan over the whole (or part of the) domain
+# Histogram: counts-only scans over the whole (or part of the) domain
 # ---------------------------------------------------------------------------
 #
 # A full value histogram (counts for every key lo..lo+k-1, k up to 4096)
-# cannot go through the bitvector kernels at large n*k — k=512 bitvectors
-# of a 512 MiB column would be 30 GB of output.  Dropping the bits store
-# makes the pass read-bound: the interval kernel's one-shot mask + SWAPMOVE
-# transpose produce the per-key words, which are popcounted and summed
-# in-register; only the tiny per-step count partials reach HBM.
+# cannot go through the bitvector tiers at large n*k — k=512 bitvectors of
+# a 512 MiB column would be 30 GB of output.  Counts-only rows are reduced
+# where they are made, so the pass is read-bound.
 
 
-def _count_rows_tail_masked(off_ref, i, tb, n, rows, cnt_ref, base_row=0):
-    """Count-only analog of :func:`_store_rows_tail_masked`: popcount+sum
-    each row into cnt_ref, masking the validity tail only in the grid
-    step that contains it."""
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
-
-    def _store(masked: bool):
-        if masked:
-            r0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-            l0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-            blk = off_ref[0, 0] + (i * tb + r0) * LANES + l0
-            valid = jnp.where(
-                blk < full,
-                jnp.uint32(0xFFFFFFFF),
-                jnp.where(
-                    blk == full,
-                    jnp.uint32((1 << rem) - 1 if rem else 0),
-                    jnp.uint32(0),
-                ),
-            )
-        for j, word in enumerate(rows):
-            w = word & valid if masked else word
-            cnt_ref[0, base_row + j] = jnp.sum(
-                jax.lax.population_count(w).astype(jnp.int32), axis=0
-            )
-
-    tile_end = off_ref[0, 0] + (i + 1) * tb * LANES
-    needs_mask = tile_end > full
-    pl.when(needs_mask)(lambda: _store(True))
-    pl.when(jnp.logical_not(needs_mask))(lambda: _store(False))
+def _window_counts(tiles, lo_c, block_offset, *, width, n):
+    """Counts of the 32 keys lo_c..lo_c+31 (interval body, no bits)."""
+    body = functools.partial(_interval_rows, width=width, k=32, gateless=True)
+    return driver.count_xla(
+        body, tiles, n, jnp.reshape(lo_c, (1,)), block_offset=block_offset
+    )
 
 
-def _histogram_kernel(
-    off_ref, lo_ref, in_ref, cnt_ref, *scratch_refs,
-    width, tb, n, nchunks, gateless,
-):
-    """Grid step (i, c): 32-key chunk c of block tile i -> count partials
-    (1, 32, LANES).  Same mask/SWAPMOVE structure as the interval kernel,
-    no bits output."""
-    i = pl.program_id(0)
-    lo = lo_ref[0, 0]
-    if nchunks > 1:
-        c = pl.program_id(1)
-        scratch = scratch_refs[0]
-
-        @pl.when(c == 0)
-        def _fill():
-            for r, v in _unpack_block_values(in_ref, width):
-                scratch[r] = v
-
-        lo_c = lo + jnp.uint32(32) * c.astype(jnp.uint32)
-        ms = [_onehot32(scratch[r] - lo_c, gateless) for r in range(BLOCK_VALUES)]
-    else:
-        # materialize the 32 masks once: all four 8-key rounds reuse them
-        # (streaming would unpack every value 4x)
-        ms = [
-            _onehot32(v - lo, gateless)
-            for _, v in _unpack_block_values(in_ref, width)
-        ]
-
-    rows = []
-    for c8 in range(4):
-        x = []
-        for t in range(8):
-            acc = None
-            for g in range(4):
-                mb = _mask_byte(ms[8 * g + t], c8, g)
-                acc = mb if acc is None else acc | mb
-            x.append(acc)
-        rows.extend(_transpose8x8_bytes(x))
-
-    _count_rows_tail_masked(off_ref, i, tb, n, rows, cnt_ref)
-
-
-def _histogram_plan(b1: int, width: int, k: int, tb: int | None):
-    """tb / chunk-count selection shared by the kernel wrapper and the
-    bench driver (which needs it to compute the partials' HBM traffic)."""
-    nchunks = (k + 31) // 32
-    kpad = nchunks * 32
-    # live set: double-buffered input + 32 masks + 32 row words held
-    # simultaneously + scratch when chunked (measured: extra=16 OOM'd the
-    # 16 MB scoped vmem at tb=512 — the masks AND rows coexist)
-    extra = (32 if nchunks > 1 else 0) + 32 + 32 + 12
-    per_tb = 512 * (2 * width + extra)
-    tb_auto = min(512, max(8, (12_000_000 // per_tb) // 8 * 8))
-    tb = _pick_tb(b1, tb if tb is not None else tb_auto)
-    return tb, nchunks, kpad
-
-
-def histogram_partials_nbytes(
-    b1: int, width: int, k: int, tb: int | None = None
-) -> int:
-    """HBM bytes written as per-grid-step count partials (the histogram's
-    only output traffic besides the final (k,) reduce)."""
-    tb, _, kpad = _histogram_plan(b1, width, k, tb)
-    return (b1 // tb) * kpad * LANES * 4
-
-
-def histogram_dag_partials_nbytes(
-    b1: int, width: int, k: int, tb: int | None = None, lo: int = 0
-) -> int:
-    """Partials bytes for :func:`histogram_dag_tiles` (sums the per-group
-    pallas_calls; mirrors _histogram_dag_tiles_impl's tb/kpad choice)."""
-    total = 0
-    g0 = 0
-    for g in _static_group_sizes(k):
-        krows = _static_krows(g)
-        nchunks = -(-g // krows)
-        kpad = nchunks * krows
-        live = max(
-            _static_dag_liveness(
-                width, tuple(range(lo + g0 + c0, lo + g0 + min(c0 + krows, g)))
-            )
-            for c0 in range(0, g, krows)
-        )
-        g0 += g
-        per_tb = 512 * (2 * width + krows + width + 32 + live + 64)
-        tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-        tbg = _pick_tb(b1, tb if tb is not None else tb_auto)
-        total += (b1 // tbg) * kpad * LANES * 4
-    return total
-
-
-@functools.partial(
-    jax.jit, static_argnames=("width", "n", "k", "tb", "interpret", "gateless")
-)
-def _histogram_tiles_impl(tiles, lo, k, width, n, tb, interpret, gateless,
-                          block_offset):
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    tb, nchunks, kpad = _histogram_plan(b1, width, k, tb)
-    grid = (b1 // tb,) if nchunks == 1 else (b1 // tb, nchunks)
-    lo2 = jnp.asarray(lo, jnp.uint32).reshape(1, 1)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    if nchunks == 1:
-        ix = {
-            "smem": lambda i: (0, 0),
-            "in": lambda i: (0, i, 0),
-            "cnt": lambda i: (i, 0, 0),
-        }
-    else:
-        ix = {
-            "smem": lambda i, c: (0, 0),
-            "in": lambda i, c: (0, i, 0),
-            "cnt": lambda i, c: (i, c, 0),
-        }
-    cnt = pl.pallas_call(
-        functools.partial(
-            _histogram_kernel,
-            width=width, tb=tb, n=n, nchunks=nchunks, gateless=gateless,
+@functools.partial(jax.jit, static_argnames=("k", "width", "n"))
+def _histogram_impl(tiles, lo, block_offset, *, k, width, n):
+    nwin = (k + 31) // 32
+    lo = jnp.asarray(lo, jnp.uint32)
+    counts = jax.lax.map(
+        lambda c: _window_counts(
+            tiles, lo + jnp.uint32(32) * c, block_offset, width=width, n=n
         ),
-        out_shape=jax.ShapeDtypeStruct((b1 // tb, kpad, LANES), jnp.int32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), ix["smem"], memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, 1), ix["smem"], memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (width, tb, LANES), ix["in"], memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 32, LANES), ix["cnt"], memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=(
-            [pltpu.VMEM((BLOCK_VALUES, tb, LANES), jnp.uint32)]
-            if nchunks > 1
-            else []
-        ),
-        interpret=interpret,
-    )(off, lo2, tiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    return counts[:k]
+        jnp.arange(nwin, dtype=jnp.uint32),
+    )
+    return counts.reshape(-1)[:k]
 
 
 def histogram_tiles(
@@ -1698,209 +475,30 @@ def histogram_tiles(
     k: int,
     width: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
 ) -> jax.Array:
     """Counts for the k consecutive keys lo..lo+k-1 WITHOUT materializing
-    bitvectors -> uint32 (k,).  k up to 4096 (chunks of 32 on a second
-    grid dimension); a full domain histogram is k = 2^width."""
+    bitvectors -> uint32 (k,).  ``lo`` may be traced: one compiled 32-key
+    window body is mapped over the ceil(k/32) windows (one pass over the
+    packed column per window).  k up to 4096; a full domain histogram is
+    k = 2^width."""
     if not (1 <= k <= 4096):
         raise ValueError(f"histogram supports 1 <= k <= 4096, got {k}")
-    gateless = shift_saturates(interpret=interpret)
-    return _histogram_tiles_impl(
-        tiles, lo, k, width, n, tb, interpret, gateless, block_offset
+    return _histogram_impl(tiles, lo, block_offset, k=k, width=width, n=n)
+
+
+# One static AND-DAG over every key of the span; past this many keys the
+# traced-lo window form runs instead (the straight-line body grows with k,
+# and its compile time with it).
+HISTOGRAM_DAG_MAX_KEYS = 512
+
+
+@functools.partial(jax.jit, static_argnames=("lo", "k", "width", "n"))
+def _histogram_dag_impl(tiles, block_offset, *, lo, k, width, n):
+    body = functools.partial(
+        _static_rows, width=width, keys=tuple(range(lo, lo + k))
     )
-
-
-def _histogram_dag_kernel(
-    off_ref, in_ref, cnt_ref, *scratch_refs, width, tb, n, krows, chunks
-):
-    """Counts-only static AND-DAG kernel: grid (i[, c]) -> per-chunk
-    popcount partials (1, krows, LANES).  Same DAG structure as
-    _shared_scan_bitsliced_static_kernel, no bits output."""
-    i = pl.program_id(0)
-    dom = 1 << width
-    zero = jnp.zeros((tb, LANES), jnp.uint32)
-
-    def _rows(chunk, planes):
-        memo: dict = {}
-        rows = [
-            _combo(planes, 0, width, int(key), memo) if int(key) < dom else zero
-            for key in chunk
-        ]
-        rows += [zero] * (krows - len(rows))
-        return rows
-
-    if len(chunks) == 1:
-        vs = [v for _, v in _unpack_block_values(in_ref, width)]
-        planes = _transpose_bitplanes(vs, width)
-        _count_rows_tail_masked(
-            off_ref, i, tb, n, _rows(chunks[0], planes), cnt_ref
-        )
-        return
-
-    scratch = scratch_refs[0]
-    c = pl.program_id(1)
-
-    @pl.when(c == 0)
-    def _fill():
-        vs = [v for _, v in _unpack_block_values(in_ref, width)]
-        ps = _transpose_bitplanes(vs, width)
-        for p in range(width):
-            scratch[p] = ps[p]
-
-    for idx, chunk in enumerate(chunks):
-
-        @pl.when(c == idx)
-        def _body(chunk=chunk):
-            planes = [scratch[p] for p in range(width)]
-            _count_rows_tail_masked(
-                off_ref, i, tb, n, _rows(chunk, planes), cnt_ref
-            )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("keys", "width", "n", "tb", "interpret")
-)
-def _histogram_dag_tiles_impl(
-    tiles, keys: tuple, width, n, tb, interpret, block_offset
-):
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    k = len(keys)
-    krows = _static_krows(k)
-    nchunks = -(-k // krows)
-    chunks = tuple(
-        tuple(keys[c0 : c0 + krows]) for c0 in range(0, k, krows)
-    )
-    kpad = nchunks * krows
-    live = max(_static_dag_liveness(width, chunk) for chunk in chunks)
-    # +64: Mosaic scratch headroom beyond the counted DAG liveness (see
-    # _bitsliced_static_tiles_impl — measured scoped-vmem overflow)
-    per_tb = 512 * (2 * width + krows + width + 32 + live + 64)
-    tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-    tb = _pick_tb(b1, tb if tb is not None else tb_auto)
-    grid = (b1 // tb,) if nchunks == 1 else (b1 // tb, nchunks)
-    ix = (lambda i: (0, 0)) if nchunks == 1 else (lambda i, c: (0, 0))
-    tile_ix = (
-        (lambda i: (0, i, 0)) if nchunks == 1 else (lambda i, c: (0, i, 0))
-    )
-    cnt_ix = (
-        (lambda i: (i, 0, 0)) if nchunks == 1 else (lambda i, c: (i, c, 0))
-    )
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    cnt = pl.pallas_call(
-        functools.partial(
-            _histogram_dag_kernel,
-            width=width, tb=tb, n=n, krows=krows, chunks=chunks,
-        ),
-        out_shape=jax.ShapeDtypeStruct((b1 // tb, kpad, LANES), jnp.int32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), ix, memory_space=pltpu.SMEM),
-            pl.BlockSpec((width, tb, LANES), tile_ix, memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, krows, LANES), cnt_ix, memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=(
-            [pltpu.VMEM((width, tb, LANES), jnp.uint32)] if nchunks > 1 else []
-        ),
-        interpret=interpret,
-    )(off, tiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    return counts[:k]
-
-
-def _histogram_span_kernel(
-    off_ref, in_ref, cnt_ref, *, width, tb, n, lo, k
-):
-    """Single-pass counts-only AND-DAG kernel for a consecutive key span:
-    ALL k rows in one straight-line body (no chunk grid dimension, no
-    predicated branches).
-
-    Counts-only makes this shape viable where the bits-producing kernel
-    must chunk: each key row is popcounted and stored IMMEDIATELY, so in
-    ascending-key DFS order the live set is one root-to-leaf path of
-    memoized subtrees (~width vectors, measured by _static_dag_liveness)
-    — not k rows.  Per-row (1, 128) stores are kept deliberately: an
-    aligned-(8, 128)-group-store variant was measured NEUTRAL (7.14 vs
-    7.08 ms at k=512, tb-flat — the round-4 1.25x-of-fitted residue was
-    the cost model excluding the 512 cross-sublane reductions, not the
-    stores; see DESIGN §3).  The validity word is computed
-    unconditionally and ANDed into every row (one op per key) instead
-    of the usual masked/unmasked pl.when split, which would have
-    duplicated the whole k-key body into both branches."""
-    i = pl.program_id(0)
-    vs = [v for _, v in _unpack_block_values(in_ref, width)]
-    planes = _transpose_bitplanes(vs, width)
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
-    r0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-    l0 = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-    blk = off_ref[0, 0] + (i * tb + r0) * LANES + l0
-    valid = jnp.where(
-        blk < full,
-        jnp.uint32(0xFFFFFFFF),
-        jnp.where(blk == full, jnp.uint32((1 << rem) - 1 if rem else 0),
-                  jnp.uint32(0)),
-    )
-    dom = 1 << width
-    zero = jnp.zeros((tb, LANES), jnp.uint32)
-    memo: dict = {}
-    for j in range(k):
-        key = lo + j
-        row = _combo(planes, 0, width, key, memo) if key < dom else zero
-        w = row & valid
-        cnt_ref[0, j] = jnp.sum(
-            jax.lax.population_count(w).astype(jnp.int32), axis=0
-        )
-
-
-@functools.partial(
-    jax.jit, static_argnames=("lo", "k", "width", "n", "tb", "interpret")
-)
-def _histogram_span_tiles_impl(
-    tiles, lo: int, k: int, width, n, tb, interpret, block_offset
-):
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    live = _static_dag_liveness(width, tuple(range(lo, lo + k)))
-    # in (double-buffered) + planes + transpose transients + DFS live set
-    # + Mosaic headroom (same 64-vec rule as the bits kernel)
-    per_tb = 512 * (2 * width + width + 40 + live + 64)
-    tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-    tb = _pick_tb(b1, tb if tb is not None else tb_auto)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    cnt = pl.pallas_call(
-        functools.partial(
-            _histogram_span_kernel, width=width, tb=tb, n=n, lo=lo, k=k
-        ),
-        out_shape=jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        grid=(b1 // tb,),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(off, tiles)
-    return jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-
-
-def histogram_span_partials_nbytes(
-    b1: int, width: int, k: int, tb: int | None = None, lo: int = 0
-) -> int:
-    """Partials bytes for the single-pass span kernel."""
-    live = _static_dag_liveness(width, tuple(range(lo, lo + k)))
-    per_tb = 512 * (2 * width + width + 40 + live + 64)
-    tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-    tb = _pick_tb(b1, tb if tb is not None else tb_auto)
-    return (b1 // tb) * k * LANES * 4
+    return driver.count_xla(body, tiles, n, block_offset=block_offset)
 
 
 def histogram_dag_tiles(
@@ -1909,71 +507,34 @@ def histogram_dag_tiles(
     k: int,
     width: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
-    single_pass: bool | None = None,
 ) -> jax.Array:
     """Histogram via the shared AND-DAG (CONCRETE lo): counts for keys
     lo..lo+k-1 with the whole consecutive span sharing one memoized
-    subtree.
-
-    k > 48 dispatches to the SINGLE-PASS span kernel
-    (:func:`_histogram_span_kernel`): one straight-line body computes all
-    k rows per tile — fewer counted ops than the 32-key-chunk form (the
-    chunk split re-pays subtree roots across chunks) and ~20x fewer grid
-    steps (the k=512 chunked form ran ~19.5k steps; at the measured
-    0.7-1 us/step overhead that alone was ~half its 15.7 ms).  k <= 48
-    keeps the chunked kernel (one small chunk, same thing); k > 512
-    also keeps it — the straight-line body grows with k and past the
-    hardware-validated k=512 point the TRACE+COMPILE cost explodes
-    (a w=12 full-domain k=4096 body took >10 min to build vs seconds
-    chunked; compile time is a production cost too).  Pass
-    ``single_pass=False`` to force the chunked form (measured
-    side-by-side in bench_results/op_fit_v5e.csv) or ``True`` to force
-    the span kernel outside the default window."""
+    subtree; every row is popcounted where it is made.  Spans past
+    :data:`HISTOGRAM_DAG_MAX_KEYS` keys run :func:`histogram_tiles`."""
     if not (1 <= k <= 4096):
         raise ValueError(f"histogram supports 1 <= k <= 4096, got {k}")
-    lo_i = int(lo)
-    if single_pass is None:
-        single_pass = 48 < k <= 512
-    if single_pass:
-        return _histogram_span_tiles_impl(
-            tiles, lo_i, k, width, n, tb, interpret, block_offset
-        )
-    parts = []
-    g0 = 0
-    for g in _static_group_sizes(k):
-        keys = tuple(range(lo_i + g0, lo_i + g0 + g))
-        g0 += g
-        parts.append(
-            _histogram_dag_tiles_impl(
-                tiles, keys, width, n, tb, interpret, block_offset
-            )
-        )
-    return parts[0] if len(parts) == 1 else jnp.concatenate(parts)
+    if k > HISTOGRAM_DAG_MAX_KEYS:
+        return histogram_tiles(tiles, jnp.uint32(lo), k, width, n, block_offset)
+    return _histogram_dag_impl(
+        tiles, block_offset, lo=int(lo), k=k, width=width, n=n
+    )
 
 
-def histogram_device(
-    dev: DeviceColumn, lo=0, k: int | None = None,
-    tb: int | None = None, interpret: bool = False,
-) -> jax.Array:
+def histogram_device(dev: DeviceColumn, lo=0, k: int | None = None) -> jax.Array:
     """Value histogram of a packed column -> uint32 counts (k,), default
     the full domain (k = 2^width, capped at 4096).  Read-bound: one pass
     over the packed bytes, no bitvector output exists.  Concrete
-    (non-jax) lo dispatches to the shared-AND-DAG kernel
+    (non-jax) lo dispatches to the shared-AND-DAG form
     (histogram_dag_tiles); a jax scalar / traced lo keeps the
-    once-compiled mask-window kernel — pass lo that way when sweeping
-    many windows (each concrete lo specializes its own DAG programs)."""
+    once-compiled mask-window form — pass lo that way when sweeping many
+    windows (each concrete lo specializes its own DAG program)."""
     if k is None:
         k = min(1 << dev.width, 4096)
     if isinstance(lo, (jax.Array, jax.core.Tracer)):
-        return histogram_tiles(
-            dev.tiles, lo, k, dev.width, dev.n, tb=tb, interpret=interpret
-        )
-    return histogram_dag_tiles(
-        dev.tiles, lo, k, dev.width, dev.n, tb=tb, interpret=interpret
-    )
+        return histogram_tiles(dev.tiles, lo, k, dev.width, dev.n)
+    return histogram_dag_tiles(dev.tiles, lo, k, dev.width, dev.n)
 
 
 # ---------------------------------------------------------------------------
@@ -1981,44 +542,36 @@ def histogram_device(
 # ---------------------------------------------------------------------------
 
 
-def _range_scan_kernel(off_ref, lohi_ref, in_ref, bits_ref, cnt_ref, *, width, k, tb, n):
-    i = pl.program_id(0)
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
-    row = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-    g = off_ref[0, 0] + (i * tb + row) * LANES + lane
-    valid = jnp.where(
-        g < full,
-        jnp.uint32(0xFFFFFFFF),
-        jnp.where(g == full, jnp.uint32((1 << rem) - 1 if rem else 0), jnp.uint32(0)),
-    )
-
-    accs = [jnp.zeros((tb, LANES), jnp.uint32) for _ in range(k)]
-    for r, v in _unpack_block_values(in_ref, width):
+def _range_rows(words, lows, highs, *, width, k):
+    """Half-open interval via the unsigned subtract trick: one compare per
+    (value, predicate) instead of two."""
+    lo = [lows[j] for j in range(k)]
+    span = [highs[j] - lows[j] for j in range(k)]
+    accs = [jnp.uint32(0)] * k
+    for r in range(BLOCK_VALUES):
+        v = unpack_value_at(words, width, r)
         bit = jnp.uint32(1 << r)
         for j in range(k):
-            # half-open interval via the unsigned subtract trick: one
-            # compare per predicate instead of two
-            inside = (v - lohi_ref[j, 0]) < (lohi_ref[j, 1] - lohi_ref[j, 0])
-            accs[j] = accs[j] | jnp.where(inside, bit, jnp.uint32(0))
-
-    for j in range(k):
-        w = accs[j] & valid
-        bits_ref[j] = w
-        cnt_ref[0, j] = jnp.sum(
-            jax.lax.population_count(w).astype(jnp.int32), axis=0
-        )
+            accs[j] = accs[j] | jnp.where((v - lo[j]) < span[j], bit, jnp.uint32(0))
+    return accs
 
 
-@functools.partial(jax.jit, static_argnames=("width", "n", "tb", "interpret"))
+@functools.partial(jax.jit, static_argnames=("width", "n"))
+def _range_impl(tiles, lows, highs, block_offset, *, width, n):
+    k = int(lows.shape[0])
+    body = functools.partial(_range_rows, width=width, k=k)
+    return driver.scan_xla(
+        body, tiles, n, lows.astype(jnp.uint32), highs.astype(jnp.uint32),
+        block_offset=block_offset,
+    )
+
+
 def range_scan_tiles(
     tiles: jax.Array,
     lows: jax.Array,
     highs: jax.Array,
     width: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
 ) -> tuple[jax.Array, jax.Array]:
     """k half-open range predicates [lo_j, hi_j) in one fused pass.
@@ -2026,278 +579,35 @@ def range_scan_tiles(
     The capability extension over the reference (equality-only shared
     scans): one compare per predicate via the unsigned-subtract interval
     trick, same bitvector/count contract as shared_scan_tiles."""
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    k = int(lows.shape[0])
-    tb = _pick_tb(b1, tb if tb is not None else default_scan_tb(k))
-    grid = (b1 // tb,)
-    lohi = jnp.stack(
-        [lows.astype(jnp.uint32), highs.astype(jnp.uint32)], axis=1
-    )  # (k, 2)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    bits, cnt = pl.pallas_call(
-        functools.partial(_range_scan_kernel, width=width, k=k, tb=tb, n=n),
-        out_shape=(
-            jax.ShapeDtypeStruct((k, b1, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((k, 2), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (k, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )(off, lohi, tiles)
-    return bits, jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
+    return _range_impl(
+        tiles, jnp.asarray(lows, jnp.uint32), jnp.asarray(highs, jnp.uint32),
+        block_offset, width=width, n=n,
+    )
 
 
-def range_scan_device(
-    dev: DeviceColumn, lows, highs, tb: int | None = None, interpret: bool = False
-) -> tuple[jax.Array, jax.Array]:
+def range_scan_device(dev: DeviceColumn, lows, highs) -> tuple[jax.Array, jax.Array]:
     """k range predicates on a DeviceColumn -> ((k, W) bitvectors, counts)."""
-    lows = jnp.asarray(lows, jnp.uint32)
-    highs = jnp.asarray(highs, jnp.uint32)
-    bits, counts = range_scan_tiles(
-        dev.tiles, lows, highs, dev.width, dev.n, tb=tb, interpret=interpret
-    )
+    bits, counts = range_scan_tiles(dev.tiles, lows, highs, dev.width, dev.n)
     return bits_to_canonical(bits, dev.n), counts
-
-
-# ---------------------------------------------------------------------------
-# Dynamic-k shared scan: non-unrolled predicate loop for large k
-# ---------------------------------------------------------------------------
-#
-# The static kernel unrolls 32*k vector ops at trace time — ideal for small
-# k (the analog of the reference's compile-time template
-# shared_scan_128_linear_static<NUM>, simd_scan.hpp:122-236) but code size
-# and compile time grow linearly with k.  This variant is the analog of the
-# reference's dynamic-k path (shared_scan_128_linear_standard,
-# simd_scan_shared_linear.cpp:9-62): values are unpacked ONCE into a VMEM
-# scratch, then a lax.fori_loop walks the predicate table with dynamic SMEM
-# key reads and dynamic VMEM output indexing — O(1) code size for any k.
-
-
-def _shared_scan_dynamic_kernel(
-    off_ref, keys_ref, in_ref, bits_ref, cnt_ref, scratch, *, width, k, tb, n
-):
-    i = pl.program_id(0)
-    full, rem = n // BLOCK_VALUES, n % BLOCK_VALUES
-    row = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 0)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (tb, LANES), 1)
-    g = off_ref[0, 0] + (i * tb + row) * LANES + lane
-    valid = jnp.where(
-        g < full,
-        jnp.uint32(0xFFFFFFFF),
-        jnp.where(g == full, jnp.uint32((1 << rem) - 1 if rem else 0), jnp.uint32(0)),
-    )
-
-    # unpack once into VMEM scratch (unrolled: 32 static steps)
-    for r, v in _unpack_block_values(in_ref, width):
-        scratch[r] = v
-
-    def key_body(j, _):
-        key = keys_ref[j, 0]
-
-        # r-loop unrolled (static scratch reads, constant shifts) — only
-        # the key loop is dynamic; a doubly-dynamic version ran ~2x slower
-        word = jnp.zeros((tb, LANES), jnp.uint32)
-        for r in range(BLOCK_VALUES):
-            word = word | jnp.where(
-                scratch[r] == key, jnp.uint32(1 << r), jnp.uint32(0)
-            )
-        word = word & valid
-        bits_ref[j] = word
-        cnt_ref[0, j] = jnp.sum(
-            jax.lax.population_count(word).astype(jnp.int32), axis=0
-        )
-        return 0
-
-    jax.lax.fori_loop(0, k, key_body, 0)
-
-
-@functools.partial(jax.jit, static_argnames=("width", "n", "tb", "interpret"))
-def shared_scan_dynamic_tiles(
-    tiles: jax.Array,
-    keys: jax.Array,
-    width: int,
-    n: int,
-    tb: int | None = None,
-    interpret: bool = False,
-    block_offset: jax.Array | int = 0,
-) -> tuple[jax.Array, jax.Array]:
-    """Same contract as shared_scan_tiles; key loop not unrolled —
-    use for large k where the static kernel's compile time explodes."""
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    k = int(keys.shape[0])
-    # scratch (32 rows) + double-buffered input + (k, tb, 128) bits block
-    tb_auto = min(64, _vmem_tb_cap(width, k, extra=36))
-    tb = _pick_tb(b1, tb if tb is not None else tb_auto)
-    grid = (b1 // tb,)
-    keys2 = keys.astype(jnp.uint32).reshape(k, 1)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    bits, cnt = pl.pallas_call(
-        functools.partial(_shared_scan_dynamic_kernel, width=width, k=k, tb=tb, n=n),
-        out_shape=(
-            jax.ShapeDtypeStruct((k, b1, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((k, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (k, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=[pltpu.VMEM((BLOCK_VALUES, tb, LANES), jnp.uint32)],
-        interpret=interpret,
-    )(off, keys2, tiles)
-    return bits, jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-
-
-# ---------------------------------------------------------------------------
-# Chunked static shared scan: arbitrary concrete keys, any k, 32-key grid
-# chunks
-# ---------------------------------------------------------------------------
-#
-# The fast tier for large arbitrary key sets — the full TPU analog of the
-# reference's every-k compile-time template family
-# (shared_scan_128_linear_static<NUM> up to 1024, simd_scan.hpp:122-236,
-# simd_scan_shared_linear.cpp:66-78).  Like the interval kernel, key chunks
-# of 32 ride a second grid dimension with values unpacked once per block
-# tile into VMEM scratch, so the kernel body is a fully static 32x32
-# unrolled compare block regardless of k: O(1) code size in k (one chunk
-# compiled once, stepped nchunks times), no dynamic VMEM indexing (the
-# dynamic-k kernel's weakness), and the bits output block stays
-# (32, tb, 128) at any k.  Keys are padded to a 32-multiple with the
-# unmatchable sentinel 0xFFFFFFFF (values are < 2^width <= 2^31).
-
-
-def _shared_scan_chunked_kernel(
-    off_ref, keys_ref, in_ref, bits_ref, cnt_ref, scratch, *, width, tb, n, krows
-):
-    i = pl.program_id(0)
-    c = pl.program_id(1)
-
-    @pl.when(c == 0)
-    def _fill():
-        for r, v in _unpack_block_values(in_ref, width):
-            scratch[r] = v
-
-    accs = [jnp.zeros((tb, LANES), jnp.uint32) for _ in range(krows)]
-    for r in range(BLOCK_VALUES):
-        v = scratch[r]
-        bit = jnp.uint32(1 << r)
-        for j in range(krows):
-            accs[j] = accs[j] | jnp.where(v == keys_ref[j, 0], bit, jnp.uint32(0))
-
-    _store_rows_tail_masked(off_ref, i, tb, n, accs, bits_ref, cnt_ref)
-
-
-@functools.partial(jax.jit, static_argnames=("width", "n", "tb", "interpret"))
-def shared_scan_chunked_tiles(
-    tiles: jax.Array,
-    keys: jax.Array,
-    width: int,
-    n: int,
-    tb: int | None = None,
-    interpret: bool = False,
-    block_offset: jax.Array | int = 0,
-) -> tuple[jax.Array, jax.Array]:
-    """Same contract as shared_scan_tiles for any k (keys need not be
-    consecutive); keys are processed in 32-wide chunks on a second grid
-    dimension.  Preferred over shared_scan_dynamic_tiles whenever k > 32."""
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    k = int(keys.shape[0])
-    krows = _interval_krows(k) if k > 32 else min(k, 32)
-    nchunks = (k + krows - 1) // krows
-    kpad = nchunks * krows
-    keys2 = keys.astype(jnp.uint32).reshape(k, 1)
-    if kpad != k:
-        keys2 = jnp.concatenate(
-            [keys2, jnp.full((kpad - k, 1), 0xFFFFFFFF, jnp.uint32)], axis=0
-        )
-    # scratch (32) + accs (krows) + double-buffered in/out blocks
-    per_tb = 512 * (2 * width + 2 * krows + 32 + krows + 8)
-    tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-    tb = _pick_tb(b1, tb if tb is not None else tb_auto)
-    grid = (b1 // tb, nchunks)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    bits, cnt = pl.pallas_call(
-        functools.partial(
-            _shared_scan_chunked_kernel, width=width, tb=tb, n=n, krows=krows
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((kpad, b1, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, kpad, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i, c: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((krows, 1), lambda i, c: (c, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i, c: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (krows, tb, LANES), lambda i, c: (c, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, krows, LANES), lambda i, c: (i, c, 0), memory_space=pltpu.VMEM
-            ),
-        ),
-        scratch_shapes=[pltpu.VMEM((BLOCK_VALUES, tb, LANES), jnp.uint32)],
-        interpret=interpret,
-    )(off, keys2, tiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    if kpad != k:
-        bits, counts = bits[:k], counts[:k]
-    return bits, counts
 
 
 # ---------------------------------------------------------------------------
 # Bit-sliced shared scan: arbitrary keys at ~2*width ops per key per BLOCK
 # ---------------------------------------------------------------------------
 #
-# The compare kernels above pay ~3 vector ops per value per key (cmp +
-# select + or on 32 unpacked value vectors) — the counted-ops VPU lower
-# bound for the compare formulation, and the reason spread arbitrary keys
-# collapsed to ~170 GB/s at k >= 64.  The bit-sliced formulation changes
-# that bound: transpose each 32-value block into ``width`` bit-plane words
-# (plane p, bit r = bit p of value r — the BitWeaving/V decomposition,
-# done once per block tile into VMEM scratch), after which ONE key costs
-# ``width`` XORs + ``width`` ANDs on whole 32-value words:
+# The compare tier pays ~3 ops per value per key (cmp + select + or on 32
+# unpacked values).  The bit-sliced formulation changes that bound:
+# transpose each 32-value block into ``width`` bit-plane words (plane p,
+# bit r = bit p of value r — the BitWeaving/V decomposition), after which
+# ONE key costs ``width`` XORs + ``width`` ANDs on whole 32-value words:
 #
 #     match_word(key) = AND_p (plane_p XOR (bit_p(key) ? 0 : ~0))
 #
-# i.e. ~2*width/32 ops per value per key (0.56 at width 9) instead of 3 —
-# a ~5x lower compute ceiling, turning large arbitrary-key scans back
-# into HBM-bound kernels.  The transpose itself is the 5-stage SWAPMOVE
-# butterfly (80 swaps of 5 ops over the 32 unpacked value vectors; stages
-# feeding planes >= width are dead and pruned by Mosaic).  Keys may be
-# traced — nothing inspects their values — so this tier also replaces the
-# dynamic-k kernel for traced key sets.  Chunks of 32 keys ride the
-# second grid dimension exactly like the chunked kernel; out-of-domain
-# keys (>= 2^width, including the 0xFFFFFFFF padding sentinel) are killed
-# by a per-key scalar mask since only ``width`` planes are compared.
+# i.e. ~2*width/32 ops per value per key (0.56 at width 9) instead of 3.
+# The transpose itself is the 5-stage SWAPMOVE butterfly over the 32
+# unpacked value words, pruned to the live planes.  Keys may be traced —
+# nothing inspects their values — and out-of-domain keys (>= 2^width) are
+# killed by a per-key scalar mask since only ``width`` planes are compared.
 
 
 def _transpose_stages():
@@ -2317,12 +627,12 @@ def _transpose_bitplanes(vs, nplanes: int = BLOCK_VALUES):
     (plane p, bit r = bit p of vs[r]).  5-stage SWAPMOVE butterfly,
     orientation chosen so no bit reversal is needed.
 
-    The butterfly is pruned to the live planes explicitly rather than
-    trusting Mosaic DCE: liveness is propagated backward from the
-    ``nplanes`` outputs, pairs with no live output are skipped, and pairs
-    with one live output use a one-sided 4-op merge instead of the 6-op
-    SWAPMOVE (a' = (a & ~(m<<s)) | ((b & m) << s)).  At nplanes=9 this is
-    196 vector ops vs the full butterfly's 480."""
+    The butterfly is pruned to the live planes explicitly: liveness is
+    propagated backward from the ``nplanes`` outputs, pairs with no live
+    output are skipped, and pairs with one live output use a one-sided
+    4-op merge instead of the 6-op SWAPMOVE
+    (a' = (a & ~(m<<s)) | ((b & m) << s)).  At nplanes=9 this is 196 ops
+    vs the full butterfly's 480."""
     stages = _transpose_stages()
     live = set(range(nplanes))
     live_after: list[set] = [set()] * len(stages)
@@ -2354,98 +664,50 @@ def _transpose_bitplanes(vs, nplanes: int = BLOCK_VALUES):
     return x[:nplanes]
 
 
-def _shared_scan_bitsliced_kernel(
-    off_ref, keys_ref, in_ref, bits_ref, cnt_ref, planes, *, width, tb, n, krows
-):
-    c = pl.program_id(1)
+def bitplanes(words, width: int) -> list:
+    """The ``width`` bit-plane words of a block row set."""
+    return _transpose_bitplanes(unpack_values(words, width), width)
 
-    @pl.when(c == 0)
-    def _fill():
-        vs = [v for _, v in _unpack_block_values(in_ref, width)]
-        ps = _transpose_bitplanes(vs, width)
-        for p in range(width):
-            planes[p] = ps[p]
 
-    dom = jnp.uint32(1 << width)
+def _plane_fold(planes, key, width: int):
+    """Match word of one (possibly traced) scalar key: XOR+AND fold over
+    the planes, zero for out-of-domain keys."""
     one = jnp.uint32(1)
-    rows = []
-    for j in range(krows):
-        key = keys_ref[j, 0]
-        # scalar plane masks: all-ones where bit p of key is 0 (uint32
-        # wraparound of (bit - 1)); whole-key kill mask for out-of-domain
-        # keys, which would otherwise alias key mod 2^width.
-        km = jnp.where(key < dom, jnp.uint32(0xFFFFFFFF), jnp.uint32(0))
-        acc = None
-        for p in range(width):
-            mask = ((key >> jnp.uint32(p)) & one) - one
-            term = planes[p] ^ mask
-            acc = term if acc is None else acc & term
-        rows.append(acc & km)
-
-    _store_rows_tail_masked(off_ref, pl.program_id(0), tb, n, rows, bits_ref, cnt_ref)
+    km = jnp.where(key < jnp.uint32(1 << width), jnp.uint32(0xFFFFFFFF), jnp.uint32(0))
+    acc = None
+    for p in range(width):
+        term = planes[p] ^ (((key >> jnp.uint32(p)) & one) - one)
+        acc = term if acc is None else acc & term
+    return acc & km
 
 
-@functools.partial(jax.jit, static_argnames=("width", "n", "tb", "interpret"))
+def _bitsliced_rows(words, keys, *, width, k):
+    planes = bitplanes(words, width)
+    return [_plane_fold(planes, keys[j], width) for j in range(k)]
+
+
+@functools.partial(jax.jit, static_argnames=("width", "n", "backend"))
+def _bitsliced_impl(tiles, keys, block_offset, *, width, n, backend):
+    k = int(keys.shape[0])
+    body = functools.partial(_bitsliced_rows, width=width, k=k)
+    return _drive(body, tiles, n, (keys.astype(jnp.uint32),), block_offset,
+                  backend, k)
+
+
 def shared_scan_bitsliced_tiles(
     tiles: jax.Array,
     keys: jax.Array,
     width: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
+    backend: str | None = None,
 ) -> tuple[jax.Array, jax.Array]:
     """Same contract as shared_scan_tiles for any k; keys may be traced.
     The fast arbitrary-key tier (see the bit-sliced design note above)."""
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    k = int(keys.shape[0])
-    krows = _interval_krows(k) if k > 32 else min(k, 32)
-    nchunks = (k + krows - 1) // krows
-    kpad = nchunks * krows
-    keys2 = keys.astype(jnp.uint32).reshape(k, 1)
-    if kpad != k:
-        keys2 = jnp.concatenate(
-            [keys2, jnp.full((kpad - k, 1), 0xFFFFFFFF, jnp.uint32)], axis=0
-        )
-    # planes scratch (width) + accs (krows) + double-buffered in/out blocks
-    # + the transpose's ~32 transient value vectors on c == 0 steps
-    per_tb = 512 * (2 * width + 2 * krows + width + krows + 40)
-    tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-    tb = _pick_tb(b1, tb if tb is not None else tb_auto)
-    grid = (b1 // tb, nchunks)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    bits, cnt = pl.pallas_call(
-        functools.partial(
-            _shared_scan_bitsliced_kernel, width=width, tb=tb, n=n, krows=krows
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((kpad, b1, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, kpad, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i, c: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((krows, 1), lambda i, c: (c, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i, c: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (krows, tb, LANES), lambda i, c: (c, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, krows, LANES), lambda i, c: (i, c, 0), memory_space=pltpu.VMEM
-            ),
-        ),
-        scratch_shapes=[pltpu.VMEM((width, tb, LANES), jnp.uint32)],
-        interpret=interpret,
-    )(off, keys2, tiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    if kpad != k:
-        bits, counts = bits[:k], counts[:k]
-    return bits, counts
+    return _bitsliced_impl(
+        tiles, jnp.asarray(keys, jnp.uint32), block_offset, width=width, n=n,
+        backend=_backend("bitsliced", backend, int(jnp.shape(keys)[0])),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -2462,7 +724,7 @@ def shared_scan_bitsliced_tiles(
 # memoized — keys sharing a bit-pattern prefix (or any aligned sub-span
 # pattern) share the subtree, so the counted cost for k spread keys at
 # width 9 is ~57 ops per 32 values at k=8 (vs 144 for the XOR form) and
-# ~113 at k=32 (vs 576).  The same DAG serves the IN-list kernel
+# ~113 at k=32 (vs 576).  The same DAG serves the IN-list tier
 # (ops/member.py) through :func:`_member_or_tree`, which additionally
 # factors the OR across keys (Shannon-style) instead of materializing
 # per-key rows.  Cost functions below COUNT the exact DAG ops on a
@@ -2471,11 +733,11 @@ def shared_scan_bitsliced_tiles(
 
 
 def _combo(planes, lo, hi, pattern: int, memo: dict):
-    """Vector with bit r set iff bits [lo, hi) of value r equal ``pattern``.
+    """Word with bit r set iff bits [lo, hi) of value r equal ``pattern``.
 
     ``planes`` are the bit-plane words; subtrees are memoized in ``memo``
-    (shared across every key of one kernel body) so common sub-patterns
-    cost one AND total."""
+    (shared across every key of one body) so common sub-patterns cost one
+    AND total."""
     if hi - lo == 1:
         if pattern:
             return planes[lo]
@@ -2496,7 +758,7 @@ def _combo(planes, lo, hi, pattern: int, memo: dict):
 
 
 def _member_or_tree(planes, lo, hi, patterns, memo: dict):
-    """Vector with bit r set iff bits [lo, hi) of value r are IN
+    """Word with bit r set iff bits [lo, hi) of value r are IN
     ``patterns`` — the OR across keys factored Shannon-style: patterns are
     grouped by their high-span projection, each group pays one high-span
     combo AND one recursive low-span OR-tree.  Returns None when every
@@ -2551,8 +813,8 @@ class _CountVec:
 
 
 def _static_dag_ops(width: int, keys, member: bool = False) -> int:
-    """Counted vector ops of the match DAG for one kernel body (one key
-    chunk, or the whole set for the member OR-tree)."""
+    """Counted ops of the match DAG for one body (one key group, or the
+    whole set for the member OR-tree)."""
     ctr = [0]
     planes = [_CountVec(ctr) for _ in range(width)]
     memo: dict = {}
@@ -2569,10 +831,9 @@ def _static_dag_ops(width: int, keys, member: bool = False) -> int:
 
 class _LiveVec:
     """Stand-in DAG operand that records creation/last-use timestamps, so
-    the VMEM budget can be sized from the DAG's MEASURED peak register
-    liveness instead of a flat guess (memoized combo vectors stay live
-    from first computation to last reuse — for big factored DAGs that is
-    far more than the op count / 8)."""
+    the dispatch can bound a DAG's peak number of simultaneously live
+    words (memoized combo words stay live from first computation to last
+    reuse)."""
 
     __slots__ = ("env", "id")
 
@@ -2623,8 +884,8 @@ class _LiveEnv:
 
 
 def _static_dag_liveness(width: int, keys, member: bool = False) -> int:
-    """Peak simultaneously-live vectors of the match DAG (planes included
-    — they are read throughout), in (tb, 128) vreg units."""
+    """Peak simultaneously-live words of the match DAG (planes included —
+    they are read throughout)."""
     env = _LiveEnv()
     planes = [_LiveVec(env) for _ in range(width)]
     memo: dict = {}
@@ -2636,8 +897,6 @@ def _static_dag_liveness(width: int, keys, member: bool = False) -> int:
     else:
         for key in in_dom:
             _combo(planes, 0, width, key, memo)
-    # planes live until their own last use; keep them counted to the end
-    # (the kernel also holds them in scratch across chunks)
     for p in planes:
         env.use(p.id)
     return env.peak()
@@ -2650,15 +909,9 @@ _BITSLICED_FIXED = 40
 
 
 def _static_krows(k: int) -> int:
-    """Keys per chunk step for the static AND-DAG tier (NOT the interval
-    kernel's rule — the tiers bind differently).
-
-    k <= 32: one exact chunk.  33..48: one padded chunk (multiple of 8)
-    — the single-chunk fast path keeps planes in registers.  Beyond 48:
-    ALWAYS 32.  Measured (512 MiB, w=9, k~50): 32-row chunks run
-    540 GB/s vs 480 for _interval_krows' 8-row fallback — the bigger
-    chunk's DAG sharing (163 vs 280 counted ops at k=50) and 4x fewer
-    chunk steps beat the zero-pad rows the last chunk may write."""
+    """Keys per DAG group in the static tier's cost model: k <= 32 one
+    group, 33..48 one group, beyond that groups of 32 (subtrees are shared
+    within a group only)."""
     if k <= 32:
         return k
     if k <= 48:
@@ -2667,16 +920,9 @@ def _static_krows(k: int) -> int:
 
 
 def _static_group_sizes(k: int) -> list[int]:
-    """Per-pallas_call key-group sizes for the static bit-sliced tier.
-
-    Invariant: every group g chunks into <= 8 kernel branches under
-    _static_krows (Mosaic collapses past 8 predicated branches —
-    measured 55 vs 575 GB/s on the windowed kernel); with krows pinned
-    to 32 past k=48 that means groups of <= 256.  Groups prefer exact
-    multiples of 32 (no zero-pad output rows); the sub-49 tail gets its
-    own single-chunk call — an extra pass over the packed column, which
-    costs less than padding a 32-row chunk with zero rows at large
-    column sizes."""
+    """Key-group sizes the static tier's cost model prices (groups of at
+    most 256 keys, exact multiples of 32 where possible, the sub-49 tail
+    as its own group)."""
     sizes = []
     rem = k
     while rem > 0:
@@ -2693,9 +939,8 @@ def _static_group_sizes(k: int) -> list[int]:
 
 def bitsliced_static_cost(width: int, keys) -> int:
     """Static cost (quarter-ops-per-value) of the concrete-key bit-sliced
-    kernel for THIS key set: fixed unpack+transpose plus the exact counted
-    AND/NOT ops of the shared match DAG, summed over its key chunks
-    (grouped exactly as the impl groups them — _static_group_sizes)."""
+    tier for THIS key set: fixed unpack+transpose plus the exact counted
+    AND/NOT ops of the shared match DAG, summed over its key groups."""
     arr = np.asarray(keys, dtype=np.uint32)
     k = int(arr.shape[0])
     ops = 0
@@ -2712,122 +957,22 @@ def bitsliced_static_cost(width: int, keys) -> int:
     return _BITSLICED_FIXED + -(-ops // 8)
 
 
-def _shared_scan_bitsliced_static_kernel(
-    off_ref, in_ref, bits_ref, cnt_ref, *scratch_refs,
-    width, tb, n, krows, chunks,
-):
-    """Grid (i[, c]): chunk c's static keys -> bits (krows, tb, 128) via
-    the shared AND-DAG over the block's bit planes.  Out-of-domain keys
-    and chunk padding produce constant-zero rows."""
-    i = pl.program_id(0)
+def _static_rows(words, *, width, keys):
+    """Match words of a CONCRETE key set via the shared AND-DAG over the
+    bit planes; out-of-domain keys give constant-zero (None) rows."""
+    planes = bitplanes(words, width)
+    memo: dict = {}
     dom = 1 << width
-    zero = jnp.zeros((tb, LANES), jnp.uint32)
-
-    def _rows(chunk, planes):
-        memo: dict = {}
-        rows = [
-            _combo(planes, 0, width, int(key), memo) if int(key) < dom else zero
-            for key in chunk
-        ]
-        rows += [zero] * (krows - len(rows))
-        return rows
-
-    if len(chunks) == 1:
-        # single chunk: planes stay in registers, no VMEM scratch round-trip
-        vs = [v for _, v in _unpack_block_values(in_ref, width)]
-        planes = _transpose_bitplanes(vs, width)
-        _store_rows_tail_masked(
-            off_ref, i, tb, n, _rows(chunks[0], planes), bits_ref, cnt_ref
-        )
-        return
-
-    scratch = scratch_refs[0]
-    c = pl.program_id(1)
-
-    @pl.when(c == 0)
-    def _fill():
-        vs = [v for _, v in _unpack_block_values(in_ref, width)]
-        ps = _transpose_bitplanes(vs, width)
-        for p in range(width):
-            scratch[p] = ps[p]
-
-    for idx, chunk in enumerate(chunks):
-
-        @pl.when(c == idx)
-        def _body(chunk=chunk):
-            planes = [scratch[p] for p in range(width)]
-            _store_rows_tail_masked(
-                off_ref, i, tb, n, _rows(chunk, planes), bits_ref, cnt_ref
-            )
+    return [
+        _combo(planes, 0, width, key, memo) if key < dom else None
+        for key in keys
+    ]
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("keys", "width", "n", "tb", "interpret"),
-)
-def _bitsliced_static_tiles_impl(
-    tiles, keys: tuple, width, n, tb, interpret, block_offset
-):
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    k = len(keys)
-    krows = _static_krows(k)
-    nchunks = -(-k // krows)
-    chunks = tuple(
-        tuple(keys[c0 : c0 + krows]) for c0 in range(0, k, krows)
-    )
-    kpad = nchunks * krows
-    # planes scratch (width) + rows (krows) + double-buffered in/out blocks
-    # + transpose transients (~32) + DAG intermediates (MEASURED peak
-    # liveness of the biggest chunk's memoized DAG — a flat 64 guess
-    # under-budgeted wide widths ~2.6x, e.g. 134 live vecs at w=31 k=32)
-    # + 64 vecs of Mosaic headroom ON TOP of the measured DAG liveness:
-    # liveness alone RAISED tb for small-k chunks and Mosaic's own
-    # scratch overflowed the 16 MB scoped-vmem limit by 512 KB at
-    # spread k=8, 512 MiB (measured hardware compile failure)
-    live = max(_static_dag_liveness(width, chunk) for chunk in chunks)
-    per_tb = 512 * (2 * width + 2 * krows + width + 32 + live + 64)
-    tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-    tb = _pick_tb(b1, tb if tb is not None else tb_auto)
-    grid = (b1 // tb,) if nchunks == 1 else (b1 // tb, nchunks)
-    ix = (lambda i: (0, 0)) if nchunks == 1 else (lambda i, c: (0, 0))
-    tile_ix = (
-        (lambda i: (0, i, 0)) if nchunks == 1 else (lambda i, c: (0, i, 0))
-    )
-    bits_ix = (
-        (lambda i: (0, i, 0)) if nchunks == 1 else (lambda i, c: (c, i, 0))
-    )
-    cnt_ix = (
-        (lambda i: (i, 0, 0)) if nchunks == 1 else (lambda i, c: (i, c, 0))
-    )
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    bits, cnt = pl.pallas_call(
-        functools.partial(
-            _shared_scan_bitsliced_static_kernel,
-            width=width, tb=tb, n=n, krows=krows, chunks=chunks,
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((kpad, b1, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, kpad, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), ix, memory_space=pltpu.SMEM),
-            pl.BlockSpec((width, tb, LANES), tile_ix, memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((krows, tb, LANES), bits_ix, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, krows, LANES), cnt_ix, memory_space=pltpu.VMEM),
-        ),
-        scratch_shapes=(
-            [pltpu.VMEM((width, tb, LANES), jnp.uint32)] if nchunks > 1 else []
-        ),
-        interpret=interpret,
-    )(off, tiles)
-    counts = jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-    if kpad != k:
-        bits, counts = bits[:k], counts[:k]
-    return bits, counts
+@functools.partial(jax.jit, static_argnames=("keys", "width", "n", "backend"))
+def _static_impl(tiles, block_offset, *, keys, width, n, backend):
+    body = functools.partial(_static_rows, width=width, keys=keys)
+    return _drive(body, tiles, n, (), block_offset, backend, len(keys))
 
 
 def shared_scan_bitsliced_static_tiles(
@@ -2835,37 +980,21 @@ def shared_scan_bitsliced_static_tiles(
     keys,
     width: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
+    backend: str | None = None,
 ) -> tuple[jax.Array, jax.Array]:
     """Same contract as shared_scan_tiles for any CONCRETE key set: the
-    bit-sliced kernel with the per-key plane fold replaced by the shared
+    bit-sliced tier with the per-key plane fold replaced by the shared
     AND-DAG (see the design note above).  Raises on traced keys — use
-    shared_scan_bitsliced_tiles for those.  Chunk branches per kernel call
-    are capped at 8 (Mosaic collapses past 8 predicated branches; same
-    limit as the windowed kernel), with one call per 8-chunk group."""
+    shared_scan_bitsliced_tiles for those."""
     if isinstance(keys, jax.core.Tracer):
         raise TypeError("shared_scan_bitsliced_static_tiles requires concrete keys")
     arr = np.asarray(keys, dtype=np.uint32)
-    k = int(arr.shape[0])
-    if k < 1:
-        raise ValueError(f"shared scan needs at least one key, got {k}")
-    parts = []
-    g0 = 0
-    for g in _static_group_sizes(k):  # <= 8 chunk branches per call
-        sub = tuple(int(v) for v in arr[g0 : g0 + g])
-        g0 += g
-        parts.append(
-            _bitsliced_static_tiles_impl(
-                tiles, sub, width, n, tb, interpret, block_offset
-            )
-        )
-    if len(parts) == 1:
-        return parts[0]
-    return (
-        jnp.concatenate([b for b, _ in parts]),
-        jnp.concatenate([c for _, c in parts]),
+    if arr.shape[0] < 1:
+        raise ValueError(f"shared scan needs at least one key, got {arr.shape[0]}")
+    return _static_impl(
+        tiles, block_offset, keys=tuple(int(v) for v in arr), width=width,
+        n=n, backend=_backend("bitsliced_static", backend, len(arr)),
     )
 
 
@@ -2873,17 +1002,16 @@ def shared_scan_bitsliced_static_tiles(
 # Windowed shared scan: arbitrary concrete keys via 32-aligned mask windows
 # ---------------------------------------------------------------------------
 #
-# Generalizes the interval kernel's one-shot mask to ANY concrete key set:
+# Generalizes the interval tier's one-shot mask to ANY concrete key set:
 # keys are grouped into 32-aligned windows of the value domain; one
 # variable shift per (value, window) produces the 32-bit match mask for
 # every key the window contains, and one SWAPMOVE transpose per populated
-# 8-key sub-window yields the bitvector words, which are stored STRAIGHT
-# to each key's caller-order row (the plan is static — keys must be
-# concrete).  Cost is 2*windows + ~5*populated_subwindows + unpack per
-# value, independent of k itself — cheaper than the general compare
-# kernel's 3*k whenever keys cluster (>= ~2 keys per 8-aligned byte).
-# The library dispatches on exactly that static cost comparison
-# (see shared_scan_device).
+# 8-key sub-window yields the bitvector words, which land straight in each
+# key's caller-order row (the plan is static — keys must be concrete).
+# Cost is 2*windows + ~5*populated_subwindows + unpack per value,
+# independent of k itself — cheaper than the compare tier's 3*k whenever
+# keys cluster (>= ~2 keys per 8-aligned byte).  The library dispatches on
+# exactly that static cost comparison (see pick_concrete_tier).
 
 
 def _window_plan(arr):
@@ -2892,8 +1020,6 @@ def _window_plan(arr):
     bases: sorted unique 32-aligned window bases.
     plan: per base, tuple of (byte, ((j, out_row), ...)) — sub-window byte
     index, bit j within it, and the caller-order output row."""
-    import numpy as np
-
     arr = np.asarray(arr, dtype=np.uint32)
     by_base: dict[int, dict[int, list[tuple[int, int]]]] = {}
     for row, key in enumerate(arr.tolist()):
@@ -2914,13 +1040,9 @@ def _window_plan(arr):
 
 
 def _window_chunks(arr, krows: int = 32):
-    """Caller-order key rows in chunks of ``krows`` -> (bases, plans, woffs).
-
-    bases: all chunks' window bases concatenated (kernel operand);
-    plans: per chunk, the :func:`_window_plan` plan with rows relative to
-    the chunk; woffs: per chunk, its first window's index into bases."""
-    import numpy as np
-
+    """Caller-order key rows in chunks of ``krows`` -> (bases, plans, woffs):
+    all chunks' window bases concatenated, per-chunk plans (rows relative
+    to the chunk) and each chunk's first window index into bases."""
     arr = np.asarray(arr, dtype=np.uint32)
     bases_all: list[int] = []
     plans = []
@@ -2934,12 +1056,10 @@ def _window_chunks(arr, krows: int = 32):
 
 
 def windowed_cost(arr) -> int:
-    """Static vector-op cost estimate (per value, x4) of the windowed
-    kernel for this key set: 8*windows + 20*populated_subwindows, summed
-    over the 32-row chunks the kernel would actually run (windows shared
-    between chunks are re-masked per chunk and so counted per chunk)."""
-    import numpy as np
-
+    """Static op-cost estimate (per value, x4) of the windowed tier for
+    this key set: 8*windows + 20*populated_subwindows, summed over 32-row
+    key chunks past k=48 (a window shared between chunks is counted per
+    chunk)."""
     arr = np.asarray(arr, dtype=np.uint32)
     if arr.shape[0] <= 48:
         chunks = [_window_plan(arr)]
@@ -2951,18 +1071,13 @@ def windowed_cost(arr) -> int:
     )
 
 
-def _windowed_rows(values_fn, los_ref, woff, plan, krows, gateless):
-    """Per-row bitvector words for one window plan.
-
-    ``values_fn()`` yields the 32 block values in value-slot order; it is
-    re-invoked per window, so pass a closure over a cached list when the
-    values are materialized (multi-window / scratch) and a fresh unpack
-    generator when streaming (single window).  Rows the plan never touches
-    (chunk padding) stay ``None``."""
-    outs: list = [None] * krows
-    for w, wplan in enumerate(plan):
-        lo_w = los_ref[woff + w, 0]
-        ms = [_onehot32(v - lo_w, gateless) for v in values_fn()]
+def _windowed_rows(words, *, width, bases, plan):
+    """Per-row bitvector words for a static window plan (bases are
+    concrete ints)."""
+    vs = unpack_values(words, width)
+    outs: list = [None] * sum(len(j) for w in plan for _, j in w)
+    for base, wplan in zip(bases, plan):
+        ms = [_onehot32(v - jnp.uint32(base), True) for v in vs]
         for byte, jrows in wplan:
             x = []
             for t in range(8):
@@ -2977,51 +1092,10 @@ def _windowed_rows(values_fn, los_ref, woff, plan, krows, gateless):
     return outs
 
 
-def _windowed_scan_kernel(
-    off_ref, los_ref, in_ref, bits_ref, cnt_ref, *,
-    width, tb, n, k, plan, gateless,
-):
-    i = pl.program_id(0)
-    if len(plan) > 1:
-        vs = [v for _, v in _unpack_block_values(in_ref, width)]
-        values_fn = lambda: vs  # noqa: E731
-    else:
-        # single window: stream mask creation inside the unpack
-        values_fn = lambda: (  # noqa: E731
-            v for _, v in _unpack_block_values(in_ref, width)
-        )
-    outs = _windowed_rows(values_fn, los_ref, 0, plan, k, gateless)
-    _store_rows_tail_masked(off_ref, i, tb, n, outs, bits_ref, cnt_ref)
-
-
-def _windowed_chunked_kernel(
-    off_ref, los_ref, in_ref, bits_ref, cnt_ref, scratch, *,
-    width, tb, n, krows, plans, woffs, gateless,
-):
-    """Windowed scan for any k: 32-row caller-order key chunks ride the
-    second (fast) grid dimension; values are unpacked once per block tile
-    into VMEM scratch on the first chunk and reused (same layout as
-    _shared_scan_chunked_kernel), so per-chunk cost is just that chunk's
-    window masks + transposes."""
-    i = pl.program_id(0)
-    c = pl.program_id(1)
-
-    @pl.when(c == 0)
-    def _fill():
-        for r, v in _unpack_block_values(in_ref, width):
-            scratch[r] = v
-
-    for idx, chunk_plan in enumerate(plans):
-
-        @pl.when(c == idx)
-        def _body(chunk_plan=chunk_plan, woff=woffs[idx]):
-            vs = [scratch[r] for r in range(BLOCK_VALUES)]
-            outs = _windowed_rows(
-                lambda: vs, los_ref, woff, chunk_plan, krows, gateless
-            )
-            zero = jnp.zeros((tb, LANES), jnp.uint32)
-            outs = [o if o is not None else zero for o in outs]
-            _store_rows_tail_masked(off_ref, i, tb, n, outs, bits_ref, cnt_ref)
+@functools.partial(jax.jit, static_argnames=("bases", "plan", "width", "n"))
+def _windowed_impl(tiles, block_offset, *, bases, plan, width, n):
+    body = functools.partial(_windowed_rows, width=width, bases=bases, plan=plan)
+    return driver.scan_xla(body, tiles, n, block_offset=block_offset)
 
 
 def windowed_scan_tiles(
@@ -3029,148 +1103,40 @@ def windowed_scan_tiles(
     keys,
     width: int,
     n: int,
-    tb: int | None = None,
-    interpret: bool = False,
     block_offset: jax.Array | int = 0,
 ) -> tuple[jax.Array, jax.Array]:
     """Shared scan for an arbitrary CONCRETE key set, any k, via
     32-aligned mask windows; same output contract as shared_scan_tiles.
-    k <= 48 runs single-step; larger k is chunked into 32 caller-order
-    rows per step of a second grid dimension (values unpacked once to
-    VMEM scratch per block tile, as in shared_scan_chunked_tiles).
     Raises on traced keys (the store plan must be static)."""
-    import numpy as np
-
     if isinstance(keys, jax.core.Tracer):
         raise TypeError("windowed_scan_tiles requires concrete keys")
     arr = np.asarray(keys, dtype=np.uint32)
-    k = int(arr.shape[0])
-    if k < 1:
-        raise ValueError(f"windowed scan needs at least one key, got {k}")
-    gateless = shift_saturates(interpret=interpret)
-    if k <= 48:
-        bases, plan = _window_plan(arr)
-        return _windowed_scan_tiles_impl(
-            tiles, jnp.asarray(np.array(bases, np.uint32).reshape(-1, 1)),
-            width, n, k, plan, tb, interpret, gateless, block_offset,
-        )
-    # Cap chunk branches per kernel call at 8 (= 256 key rows).  Mosaic
-    # handles 8 pl.when chunk branches at full speed but falls off a cliff
-    # past that (measured v5e, w=16 k=512: 16 branches in one call = 55
-    # GB/s vs 575 for two 8-branch calls); re-reading the packed column
-    # once per group is noise next to the k bitvectors written.
-    group = 8 * 32
-    parts = []
-    for g0 in range(0, k, group):
-        sub = arr[g0 : g0 + group]
-        bases, plans, woffs = _window_chunks(sub)
-        bits, counts = _windowed_chunked_tiles_impl(
-            tiles, jnp.asarray(np.array(bases, np.uint32).reshape(-1, 1)),
-            width, n, plans, woffs, tb, interpret, gateless, block_offset,
-        )
-        parts.append((bits[: sub.shape[0]], counts[: sub.shape[0]]))
-    if len(parts) == 1:
-        return parts[0]
-    return (
-        jnp.concatenate([b for b, _ in parts]),
-        jnp.concatenate([c for _, c in parts]),
+    if arr.shape[0] < 1:
+        raise ValueError(f"windowed scan needs at least one key, got {arr.shape[0]}")
+    bases, plan = _window_plan(arr)
+    return _windowed_impl(
+        tiles, block_offset, bases=tuple(bases), plan=plan, width=width, n=n
     )
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("width", "n", "k", "plan", "tb", "interpret", "gateless"),
-)
-def _windowed_scan_tiles_impl(
-    tiles, los, width, n, k, plan, tb, interpret, gateless, block_offset
-):
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    nwin = los.shape[0]
-    # vs (32 when multi-window) + ms (32) + bits out (2k) + input
-    extra = (32 if nwin > 1 else 0) + 32 + 12
-    per_tb = 512 * (2 * width + 2 * k + extra)
-    tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-    tb = _pick_tb(b1, tb if tb is not None else tb_auto)
-    grid = (b1 // tb,)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    bits, cnt = pl.pallas_call(
-        functools.partial(
-            _windowed_scan_kernel,
-            width=width, tb=tb, n=n, k=k, plan=plan, gateless=gateless,
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((k, b1, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, k, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((los.shape[0], 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (k, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec((1, k, LANES), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ),
-        interpret=interpret,
-    )(off, los, tiles)
-    return bits, jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "width", "n", "plans", "woffs", "tb", "interpret", "gateless"
-    ),
-)
-def _windowed_chunked_tiles_impl(
-    tiles, los, width, n, plans, woffs, tb, interpret, gateless, block_offset
-):
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    krows = 32
-    nchunks = len(plans)
-    kpad = nchunks * krows
-    # scratch (32) + masks (32) + double-buffered in/bits blocks + slack
-    per_tb = 512 * (2 * width + 2 * krows + 32 + 32 + 8)
-    tb_auto = min(256, max(8, (12_000_000 // per_tb) // 8 * 8))
-    tb = _pick_tb(b1, tb if tb is not None else tb_auto)
-    grid = (b1 // tb, nchunks)
-    off = jnp.asarray(block_offset, jnp.int32).reshape(1, 1)
-    bits, cnt = pl.pallas_call(
-        functools.partial(
-            _windowed_chunked_kernel,
-            width=width, tb=tb, n=n, krows=krows, plans=plans, woffs=woffs,
-            gateless=gateless,
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((kpad, b1, LANES), jnp.uint32),
-            jax.ShapeDtypeStruct((b1 // tb, kpad, LANES), jnp.int32),
-        ),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i, c: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(
-                (los.shape[0], 1), lambda i, c: (0, 0), memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i, c: (0, i, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=(
-            pl.BlockSpec(
-                (krows, tb, LANES), lambda i, c: (c, i, 0), memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, krows, LANES), lambda i, c: (i, c, 0), memory_space=pltpu.VMEM
-            ),
-        ),
-        scratch_shapes=[pltpu.VMEM((BLOCK_VALUES, tb, LANES), jnp.uint32)],
-        interpret=interpret,
-    )(off, los, tiles)
-    return bits, jnp.sum(cnt.astype(jnp.uint32), axis=(0, 2))
+__all__ = [
+    "TRITON_TIERS",
+    "shared_scan_tiles",
+    "shared_scan_bitsliced_tiles",
+    "shared_scan_bitsliced_static_tiles",
+    "windowed_scan_tiles",
+    "interval_scan_tiles",
+    "range_scan_tiles",
+    "pick_concrete_tier",
+    "shared_scan_device",
+    "scan_device",
+    "interval_scan_device",
+    "range_scan_device",
+    "shared_scan_linear_device",
+    "shared_scan_linear_words_device",
+    "interleave_linear",
+    "histogram_tiles",
+    "histogram_dag_tiles",
+    "histogram_device",
+    "bits_to_canonical",
+]

@@ -1,29 +1,31 @@
-"""Pallas TPU unpack (decompress) and pack (compress) kernels.
+"""Unpack (decompress) and pack (compress) of device-layout columns.
 
-TPU-native re-design of the reference's SSE/AVX unpack kernels
+Re-design of the reference's SSE/AVX unpack kernels
 (src/simd_scan_decompression.cpp:57-471, ``decompress_128*`` /
 ``decompress_256*``) and the scalar compressor
 (src/simd_scan_compression.cpp:53-104 ``compress_9bit_input``).
 
-Design (see SURVEY.md §7 "hard parts"): TPU has no byte shuffle, so instead
-of the reference's ``_mm_shuffle_epi8`` + per-lane multiply trick we exploit
-the device tile layout ``tiles[width, B1, 128]`` (see layout.DeviceColumn):
-one 32-value block <-> ``width`` uint32 words placed along a *static* sublane
-axis.  For output value ``r`` of every block, the source word indices and
-shift amounts are compile-time constants (layout.unpack_schedule), so the
-kernel is a fully unrolled sequence of 32 vector ops
+Instead of the reference's ``_mm_shuffle_epi8`` + per-lane multiply trick
+we exploit the device tile layout ``tiles[width, B1, 128]`` (see
+layout.DeviceColumn): one 32-value block <-> ``width`` uint32 words placed
+along a *static* leading axis.  For output value ``r`` of every block, the
+source word indices and shift amounts are compile-time constants
+(layout.unpack_schedule), so unpack is a fully unrolled sequence of 32
+elementwise ops
 
     v_r = ((w[k_r] >> s_r) | (w[k_r+1] << (32 - s_r))) & mask
 
-each operating on a (TB, 128) tile of blocks at once — the same
-right-shift+AND formulation as the reference's AVX2 variant
-(``decompress_256_avx2``, simd_scan_decompression.cpp:427-470), which
-SURVEY.md §2.1/C5 identifies as the form closest to TPU.  No gathers, no
-shuffles, no multiplies.
+over whole ``(B1, 128)`` word rows — the same right-shift+AND formulation
+as the reference's AVX2 variant (``decompress_256_avx2``,
+simd_scan_decompression.cpp:427-470), which SURVEY.md §2.1/C5 identifies
+as the form closest to a wide vector machine.  No gathers, no shuffles,
+no multiplies; XLA fuses the whole schedule.
 
 The value output layout is ``vals[32, B1, 128]`` ("device value layout"):
 ``vals[r, b1, lane]`` = value ``r`` of block ``b1*128 + lane``.  Flat (n,)
-order is one XLA transpose away (:func:`values_to_flat`).
+order is one transpose away (:func:`values_to_flat`).  Scans fuse their
+own unpack (:func:`unpack_value_at` inside each tier body), so these
+entry points are off the query hot path.
 """
 from __future__ import annotations
 
@@ -31,8 +33,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from shared_simd_scan_tpu.layout import (
     BLOCK_VALUES,
@@ -42,75 +42,28 @@ from shared_simd_scan_tpu.layout import (
     unpack_schedule,
 )
 
-# Default blocks-sublane tile per grid step (128 sublane rows x 128 lanes of
-# blocks = 512K values per step).  Small tiles leave the kernel dominated by
-# per-grid-step overhead (measured on v5e at 512 MiB: tb=8 gave 368 GB/s,
-# tb=64 572, tb=128 651); the ceiling is VMEM: in+out blocks are
-# (width + 32) * tb * 128 * 4 bytes, double-buffered (8.3 MB at width 31).
-DEFAULT_TB = 128
 
-
-def _pick_tb(b1: int, tb: int | None) -> int:
-    """Largest legal sublane tile <= requested: must divide B1 and be a
-    multiple of 8 (Mosaic (8, 128) tiling constraint; layout.padded_blocks
-    guarantees B1 % 8 == 0)."""
-    tb = tb or DEFAULT_TB
-    tb = max((tb // 8) * 8, 8)
-    while b1 % tb:
-        tb -= 8
-    return tb
-
-
-def _unpack_block_values(in_ref, width: int):
-    """Yield (r, v_r) for one tile of blocks; v_r is (TB, LANES) uint32."""
-    for r in range(BLOCK_VALUES):
-        yield r, _unpack_value_at(in_ref, width, r)
-
-
-def _unpack_value_at(in_ref, width: int, r: int):
-    """Value r (0..31) of every block in the tile, (TB, LANES) uint32."""
+def unpack_value_at(words, width: int, r: int):
+    """Value r (0..31) of every block: ``words`` is the list (or array) of
+    the ``width`` word rows; returns one row of uint32 values."""
     k, s, straddles = unpack_schedule(width)[r]
-    v = in_ref[k] >> jnp.uint32(s)
+    v = words[k] >> jnp.uint32(s)
     if straddles:
-        v = v | (in_ref[k + 1] << jnp.uint32(32 - s))
+        v = v | (words[k + 1] << jnp.uint32(32 - s))
     return v & jnp.uint32((1 << width) - 1)
 
 
-def _unpack_kernel(in_ref, out_ref, *, width: int):
-    for r, v in _unpack_block_values(in_ref, width):
-        out_ref[r] = v
+def unpack_values(words, width: int) -> list:
+    """All 32 value rows of a block row set, in value-slot order."""
+    return [unpack_value_at(words, width, r) for r in range(BLOCK_VALUES)]
 
 
-@functools.partial(
-    jax.jit, static_argnames=("width", "tb", "interpret")
-)
-def unpack_tiles(
-    tiles: jax.Array, width: int, tb: int | None = None, interpret: bool = False
-) -> jax.Array:
-    """tiles uint32[width, B1, 128] -> values uint32[32, B1, 128].
-
-    The Pallas decompress kernel (counterpart of decompress_128/256*,
-    simd_scan_decompression.cpp:237-470).  Grid streams the block axis;
-    Pallas double-buffers HBM->VMEM DMA across grid steps automatically.
-    """
-    _, b1, lanes = tiles.shape
-    assert lanes == LANES
-    tb = _pick_tb(b1, tb)
-    grid = (b1 // tb,)
-    return pl.pallas_call(
-        functools.partial(_unpack_kernel, width=width),
-        out_shape=jax.ShapeDtypeStruct((BLOCK_VALUES, b1, LANES), jnp.uint32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (width, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            )
-        ],
-        out_specs=pl.BlockSpec(
-            (BLOCK_VALUES, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(tiles)
+@functools.partial(jax.jit, static_argnames=("width",))
+def unpack_tiles(tiles: jax.Array, width: int) -> jax.Array:
+    """tiles uint32[width, B1, 128] -> values uint32[32, B1, 128]
+    (counterpart of decompress_128/256*, simd_scan_decompression.cpp:237-470)."""
+    assert tiles.shape[2] == LANES
+    return jnp.stack(unpack_values(tiles, width))
 
 
 def values_to_flat(vals: jax.Array, n: int) -> jax.Array:
@@ -123,73 +76,50 @@ def flat_to_values(flat: jax.Array, b1: int) -> jax.Array:
     return flat.reshape(b1, LANES, BLOCK_VALUES).transpose(2, 0, 1)
 
 
-def unpack_device(
-    dev: DeviceColumn, tb: int | None = None, interpret: bool = False
-) -> jax.Array:
+def unpack_device(dev: DeviceColumn) -> jax.Array:
     """Decompress a DeviceColumn -> (n,) uint32 values in canonical order."""
-    vals = unpack_tiles(dev.tiles, dev.width, tb=tb, interpret=interpret)
-    return values_to_flat(vals, dev.n)
+    return values_to_flat(unpack_tiles(dev.tiles, dev.width), dev.n)
 
 
-# ---------------------------------------------------------------------------
-# Pack kernel (compression on device)
-# ---------------------------------------------------------------------------
-
-
-def _pack_kernel(in_ref, out_ref, *, width: int):
+def pack_words(vals, width: int) -> list:
+    """The ``width`` packed word rows of 32 value rows (values masked to
+    ``width`` bits; straddling values split across two words)."""
     mask = jnp.uint32((1 << width) - 1)
-    for k, contribs in enumerate(pack_schedule(width)):
+    out = []
+    for contribs in pack_schedule(width):
         w = None
         for r, shift, right in contribs:
-            v = in_ref[r] & mask
+            v = vals[r] & mask
             part = (v >> jnp.uint32(shift)) if right else (v << jnp.uint32(shift))
             w = part if w is None else (w | part)
-        out_ref[k] = w
+        out.append(w)
+    return out
 
 
-def pack_device_kernel(
-    values: jax.Array, width: int, tb: int | None = None, interpret: bool = False
-) -> DeviceColumn:
-    """Compress flat (n,) values into a DeviceColumn with the Pallas pack
-    kernel — the scalable path for large columns (layout.pack_device's jnp
-    path materializes (B, 32) temporaries XLA handles poorly at 10^8+
-    values)."""
-    from shared_simd_scan_tpu.layout import padded_blocks  # local: avoid cycle
-
-    n = int(values.shape[0])
-    bp = padded_blocks(n)
-    flat = jnp.zeros(bp * BLOCK_VALUES, jnp.uint32)
-    flat = jax.lax.dynamic_update_slice(flat, values.astype(jnp.uint32), (0,))
-    vals = flat_to_values(flat, bp // LANES)
-    tiles = pack_tiles(vals, width, tb=tb, interpret=interpret)
-    return DeviceColumn(width=width, n=n, tiles=tiles)
-
-
-@functools.partial(jax.jit, static_argnames=("width", "tb", "interpret"))
-def pack_tiles(
-    vals: jax.Array, width: int, tb: int | None = None, interpret: bool = False
-) -> jax.Array:
+@functools.partial(jax.jit, static_argnames=("width",))
+def pack_tiles(vals: jax.Array, width: int) -> jax.Array:
     """values uint32[32, B1, 128] -> tiles uint32[width, B1, 128].
 
     Device-side compressor (counterpart of compress_9bit_input,
     simd_scan_compression.cpp:53-104, generalized to widths 1..31 with
-    explicit shifts — no shift-count UB, SURVEY.md §5).
-    """
-    _, b1, lanes = vals.shape
-    assert lanes == LANES
-    tb = _pick_tb(b1, tb)
-    grid = (b1 // tb,)
-    return pl.pallas_call(
-        functools.partial(_pack_kernel, width=width),
-        out_shape=jax.ShapeDtypeStruct((width, b1, LANES), jnp.uint32),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(
-                (BLOCK_VALUES, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-            )
-        ],
-        out_specs=pl.BlockSpec(
-            (width, tb, LANES), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-        ),
-        interpret=interpret,
-    )(vals)
+    explicit shifts — no shift-count UB, SURVEY.md §5)."""
+    assert vals.shape[2] == LANES
+    return jnp.stack(pack_words(vals, width))
+
+
+@functools.partial(jax.jit, static_argnames=("width", "bp"))
+def _pack_flat(values: jax.Array, width: int, bp: int) -> jax.Array:
+    flat = jnp.zeros(bp * BLOCK_VALUES, jnp.uint32)
+    flat = jax.lax.dynamic_update_slice(flat, values.astype(jnp.uint32), (0,))
+    return jnp.stack(pack_words(flat_to_values(flat, bp // LANES), width))
+
+
+def pack_device_kernel(values: jax.Array, width: int) -> DeviceColumn:
+    """Compress flat (n,) values on the device into a DeviceColumn in one
+    compiled program — the scalable path for large columns
+    (layout.pack_device's jnp path materializes (B, 32) temporaries)."""
+    from shared_simd_scan_tpu.layout import padded_blocks  # local: avoid cycle
+
+    n = int(values.shape[0])
+    tiles = _pack_flat(values, width, padded_blocks(n))
+    return DeviceColumn(width=width, n=n, tiles=tiles)

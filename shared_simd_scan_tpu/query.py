@@ -161,7 +161,7 @@ def _group_and_terms(terms):
     return chunks, others, empty
 
 
-def _eval(expr, n: int, interpret: bool, zonemaps=None) -> jax.Array:
+def _eval(expr, n: int, zonemaps=None) -> jax.Array:
     """-> canonical bitvector words for the subtree.
 
     ``zonemaps`` maps ``id(col)`` -> zonemap.ZoneMap: Range/Eq work on a
@@ -175,20 +175,19 @@ def _eval(expr, n: int, interpret: bool, zonemaps=None) -> jax.Array:
             from shared_simd_scan_tpu import zonemap as zonemap_mod
 
             bits, _ = zonemap_mod.pruned_range_scan(
-                expr.col, zm, int(expr.lo), int(expr.hi),
-                interpret=interpret, full_bits=True,
+                expr.col, zm, int(expr.lo), int(expr.hi), full_bits=True,
             )
             return bits
-        return _eval(And(expr), n, interpret)
+        return _eval(And(expr), n)
     if isinstance(expr, In):
         if not expr.keys:
             return jnp.zeros((n + 31) // 32, jnp.uint32)
         bits, _ = member_ops.member_scan_device(
-            expr.col, np.asarray(expr.keys, np.uint32), interpret=interpret
+            expr.col, np.asarray(expr.keys, np.uint32)
         )
         return bits
     if isinstance(expr, Not):
-        return bitvector.logical_not(_eval(expr.term, n, interpret, zonemaps), n)
+        return bitvector.logical_not(_eval(expr.term, n, zonemaps), n)
     if isinstance(expr, Or):
         if not expr.terms:
             return jnp.zeros((n + 31) // 32, jnp.uint32)
@@ -197,18 +196,18 @@ def _eval(expr, n: int, interpret: bool, zonemaps=None) -> jax.Array:
         # semantics); multi-value ranges share ONE k-range pass per
         # column (ops.scan.range_scan_tiles, <= 32 unrolled per call)
         spans_by_col, keys_by_col, others = _group_or_terms(expr.terms)
-        rows = [_eval(t, n, interpret, zonemaps) for t in others]
+        rows = [_eval(t, n, zonemaps) for t in others]
         from shared_simd_scan_tpu.ops.scan import (
             bits_to_canonical,
             range_scan_tiles,
         )
 
         for col, keys in keys_by_col.values():
-            rows.append(_eval(In(col, keys), n, interpret, zonemaps))
+            rows.append(_eval(In(col, keys), n, zonemaps))
         for col, spans in spans_by_col.values():
             if len(spans) == 1:
                 # single range: the conj kernel writes the one fused row
-                rows.append(_eval(Range(col, *spans[0]), n, interpret, zonemaps))
+                rows.append(_eval(Range(col, *spans[0]), n, zonemaps))
                 continue
             for at in range(0, len(spans), 32):
                 g = spans[at:at + 32]
@@ -216,7 +215,7 @@ def _eval(expr, n: int, interpret: bool, zonemaps=None) -> jax.Array:
                     col.tiles,
                     jnp.asarray([lo for lo, _ in g], jnp.uint32),
                     jnp.asarray([hi for _, hi in g], jnp.uint32),
-                    col.width, n, interpret=interpret,
+                    col.width, n,
                 )
                 rows.append(
                     bitvector.logical_or(
@@ -245,7 +244,7 @@ def _eval(expr, n: int, interpret: bool, zonemaps=None) -> jax.Array:
                 for col, lo, hi in g:
                     if id(col) in zonemaps:
                         pruned.append(
-                            _eval(Range(col, lo, hi), n, interpret, zonemaps)
+                            _eval(Range(col, lo, hi), n, zonemaps)
                         )
                     else:
                         keep.append((col, lo, hi))
@@ -254,29 +253,25 @@ def _eval(expr, n: int, interpret: bool, zonemaps=None) -> jax.Array:
                         [c for c, _, _ in keep],
                         np.asarray([lo for _, lo, _ in keep], np.uint32),
                         np.asarray([hi for _, _, hi in keep], np.uint32),
-                        interpret=interpret,
                     )
                     pruned.append(bits)
             rows.extend(pruned)
-            rows.extend(_eval(t, n, interpret, zonemaps) for t in others)
-            return bitvector.logical_and(*rows) if rows else _eval(
-                And(), n, interpret
-            )
+            rows.extend(_eval(t, n, zonemaps) for t in others)
+            return bitvector.logical_and(*rows) if rows else _eval(And(), n)
         for g in chunks:
             bits, _ = conj_ops.conj_range_scan_device(
                 [c for c, _, _ in g],
                 np.asarray([lo for _, lo, _ in g], np.uint32),
                 np.asarray([hi for _, _, hi in g], np.uint32),
-                interpret=interpret,
             )
             rows.append(bits)
-        rows.extend(_eval(t, n, interpret, zonemaps) for t in others)
+        rows.extend(_eval(t, n, zonemaps) for t in others)
         return bitvector.logical_and(*rows)
     raise TypeError(f"not a query expression: {expr!r}")
 
 
 def evaluate(
-    expr, interpret: bool = False, zonemaps: dict | None = None
+    expr, zonemaps: dict | None = None
 ) -> tuple[jax.Array, jax.Array]:
     """Evaluate a predicate tree -> (canonical bitvector words, count).
 
@@ -291,7 +286,7 @@ def evaluate(
     for c in cols:
         if c.n != n:
             raise ValueError(f"query columns must share n, got {c.n} != {n}")
-    bits = _eval(expr, n, interpret, zonemaps)
+    bits = _eval(expr, n, zonemaps)
     return bits, bitvector.popcount(bits)
 
 
@@ -326,34 +321,32 @@ def _valid_tile_mask(b1: int, n: int) -> jax.Array:
     )
 
 
-def _eval_sharded(expr, n: int, b1: int, mesh, interpret: bool) -> jax.Array:
+def _eval_sharded(expr, n: int, b1: int, mesh) -> jax.Array:
     from shared_simd_scan_tpu.parallel import dist
 
     if isinstance(expr, Range):
-        return _eval_sharded(And(expr), n, b1, mesh, interpret)
+        return _eval_sharded(And(expr), n, b1, mesh)
     if isinstance(expr, In):
         if not expr.keys:
             return jnp.zeros((b1, 128), jnp.uint32)
         bits, _ = dist.sharded_member_scan(
             expr.col, np.asarray(expr.keys, np.uint32), mesh,
-            interpret=interpret,
         )
         return bits
     if isinstance(expr, Not):
-        inner = _eval_sharded(expr.term, n, b1, mesh, interpret)
+        inner = _eval_sharded(expr.term, n, b1, mesh)
         return ~inner & _valid_tile_mask(b1, n)
     if isinstance(expr, Or):
         if not expr.terms:
             return jnp.zeros((b1, 128), jnp.uint32)
         spans_by_col, keys_by_col, others = _group_or_terms(expr.terms)
-        rows = [_eval_sharded(t, n, b1, mesh, interpret) for t in others]
+        rows = [_eval_sharded(t, n, b1, mesh) for t in others]
         for col, keys in keys_by_col.values():
-            rows.append(_eval_sharded(In(col, keys), n, b1, mesh, interpret))
+            rows.append(_eval_sharded(In(col, keys), n, b1, mesh))
         for col, spans in spans_by_col.values():
             if len(spans) == 1:
                 rows.append(
-                    _eval_sharded(And(Range(col, *spans[0])), n, b1, mesh,
-                                  interpret)
+                    _eval_sharded(And(Range(col, *spans[0])), n, b1, mesh)
                 )
                 continue
             for at in range(0, len(spans), 32):
@@ -362,7 +355,7 @@ def _eval_sharded(expr, n: int, b1: int, mesh, interpret: bool) -> jax.Array:
                     col,
                     np.asarray([lo for lo, _ in g], np.uint32),
                     np.asarray([hi for _, hi in g], np.uint32),
-                    mesh, interpret=interpret,
+                    mesh,
                 )
                 merged = kbits[0]
                 for j in range(1, len(g)):
@@ -386,11 +379,11 @@ def _eval_sharded(expr, n: int, b1: int, mesh, interpret: bool) -> jax.Array:
                 [c for c, _, _ in g],
                 np.asarray([lo for _, lo, _ in g], np.uint32),
                 np.asarray([hi for _, _, hi in g], np.uint32),
-                mesh, interpret=interpret,
+                mesh,
             )
             rows.append(bits)
         rows.extend(
-            _eval_sharded(t, n, b1, mesh, interpret) for t in others
+            _eval_sharded(t, n, b1, mesh) for t in others
         )
         out = rows[0]
         for r in rows[1:]:
@@ -400,7 +393,7 @@ def _eval_sharded(expr, n: int, b1: int, mesh, interpret: bool) -> jax.Array:
 
 
 def evaluate_sharded(
-    expr, mesh, interpret: bool = False
+    expr, mesh
 ) -> tuple[jax.Array, jax.Array]:
     """Evaluate a predicate tree over block-axis-sharded columns ->
     (device-layout bits uint32[B1, 128], still sharded along the block
@@ -417,7 +410,7 @@ def evaluate_sharded(
             raise ValueError(f"query columns must share n, got {c.n} != {n}")
         if c.tiles.shape[1] != b1:
             raise ValueError("query columns must be sharded identically")
-    bits = _eval_sharded(expr, n, b1, mesh, interpret)
+    bits = _eval_sharded(expr, n, b1, mesh)
     return bits, bitvector.popcount(bits)
 
 

@@ -1,30 +1,23 @@
-"""Structural kernel cost extraction from traced jaxprs.
+"""Structural op counting from traced jaxprs.
 
-The TPU analog of the reference's callgrind cost extraction
-(scripts/callgrind_tools.py:1-40, SURVEY.md §2.3 S4): every Pallas kernel
-here is a statically scheduled sequence of vector ops, so instead of
-profiling instruction counts after the fact we COUNT them in the kernel's
-jaxpr — reproducibly, from the same code that runs, with no hand-fitted
+The analog of the reference's callgrind cost extraction
+(scripts/callgrind_tools.py:1-40, SURVEY.md §2.3 S4): every tier body is a
+statically scheduled sequence of elementwise ops on whole word rows, so
+instead of profiling instruction counts after the fact we COUNT them in
+the jaxpr — reproducibly, from the same code that runs, with no fitted
 constants.
 
-``count_vector_ops`` traces a callable, finds its ``pallas_call`` eqns and
-tallies the ALU primitives whose outputs are (…, 128)-lane vectors.  The
-translation to ops/value divides by the 32 values per block (every vector
-eqn in these kernels operates on a (tb, 128) tile of blocks).
+``count_vector_ops`` traces a callable and tallies the ALU primitives
+whose outputs are (…, 128)-lane arrays, both in plain-XLA tiers and
+inside Pallas (Triton) programs.  Every such op processes one word per
+block, so ops per value is the count divided by the 32 values per block.
 
 Caveats (documented, not hidden):
-- ``cond`` branches (pl.when) are counted at the MAXIMUM across branches —
-  an upper bound; the kernels use pl.when only for the tail-masking step
-  and the once-per-tile scratch fill, so the bound is tight for large
-  columns.
-- cross-sublane reductions (the per-key count partials) are counted as
-  ONE elementwise-equivalent each (the reduction reads its full (tb,
-  128) input once; the log-depth combine stages are a small constant on
-  top).  They were EXCLUDED until round 5, which held the k=512 span
-  histogram at a mysterious 1.23x its fitted bound: a counts-only
-  kernel with 512 keys issues 512 reductions per grid step — ~27% of
-  its counted body, not the "<1%" the original caveat assumed.
-- scalar/SMEM ops are excluded (<1% of issue slots at default tiles).
+- ``cond`` branches are counted at the MAXIMUM across branches — an upper
+  bound.
+- reductions over (…, 128) inputs (the per-key counts) are counted as ONE
+  elementwise-equivalent each (the reduction reads its input once).
+- scalar ops are excluded.
 """
 from __future__ import annotations
 
@@ -33,7 +26,7 @@ from typing import Any, Callable
 
 import jax
 
-# Vector ALU primitives that occupy VPU issue slots.
+# Elementwise ALU primitives counted as one op per word.
 ALU_PRIMS = frozenset({
     "add", "sub", "mul", "neg",
     "and", "or", "xor", "not",
@@ -45,7 +38,7 @@ ALU_PRIMS = frozenset({
 _CALL_PRIMS = {"pjit", "jit", "closed_call", "custom_jvp_call",
                "custom_vjp_call", "remat", "checkpoint"}
 
-# Cross-sublane reductions: one elementwise-equivalent each (see module
+# Reductions: one elementwise-equivalent each (see module
 # docstring).
 REDUCE_PRIMS = frozenset({
     "reduce_sum", "reduce_max", "reduce_min", "reduce_and", "reduce_or",
@@ -83,7 +76,7 @@ def _count_alu(jaxpr, counts: Counter) -> None:
                 widest = max(branch_counts, key=lambda c: sum(c.values()))
                 counts.update(widest)
             continue
-        if name in _CALL_PRIMS or name.endswith("_call") and name != "pallas_call":
+        if name in _CALL_PRIMS or name.endswith("_call"):
             for sub in _sub_jaxprs(eqn.params):
                 _count_alu(sub, counts)
             continue
@@ -115,20 +108,18 @@ def _find_pallas(jaxpr, out: list) -> None:
 
 
 def count_vector_ops(fn: Callable, *args: Any) -> dict:
-    """Trace ``fn(*args)`` and count vector ALU ops in its Pallas kernels.
+    """Trace ``fn(*args)`` and count its word-row ALU ops.
 
     Returns {"per_block": float, "per_value": float, "by_primitive":
-    {name: count}, "n_kernels": int}.  per_value assumes the library's
-    32-values-per-block layout; for kernels with a key-chunk grid
-    dimension the count covers ONE chunk step (multiply by nchunks for
-    whole-column per-value cost).
+    {name: count}, "n_kernels": int}; n_kernels is the number of Pallas
+    programs among them.  per_value assumes the library's
+    32-values-per-block layout.
     """
     jaxpr = jax.make_jaxpr(fn)(*args).jaxpr
     calls: list = []
     _find_pallas(jaxpr, calls)
     counts: Counter = Counter()
-    for eqn in calls:
-        _count_alu(eqn.params["jaxpr"], counts)
+    _count_alu(jaxpr, counts)
     per_block = float(sum(counts.values()))
     return {
         "per_block": per_block,

@@ -2,15 +2,15 @@
 
 Three mechanisms, mirroring the reference's:
   1. ``clock_ns()`` — delta stopwatch (profiling.cpp:6-13 ``_clock``); note
-     that host stopwatches only bound device work if the caller fetches
-     results — kernel timing should use ``bench.timing.measure_loop``.
+     that host stopwatches only bound device work if the caller waits for
+     results — device timing should use ``bench.timing.measure``.
   2. ``ProfileSample`` / ``profile_block`` — named accumulating sections
      with a global sample registry (profiling.cpp:15-52, the RAII
      ``ProfileSample`` and ``get_sample``), enabled at runtime via the
      ``SSS_PROFILING=1`` env var instead of a compile-time CMake flag
      (SURVEY.md §5.1).
   3. ``trace`` — a ``jax.profiler`` trace context producing TensorBoard /
-     xprof dumps, the TPU-native analog of the reference's external
+     xprof dumps, the device analog of the reference's external
      profiler hooks (MSVC /Profile, callgrind).
 """
 from __future__ import annotations

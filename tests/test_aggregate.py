@@ -24,7 +24,7 @@ def test_aggregate_parity_vs_numpy(wp, wm):
     keys = np.unique(
         np.random.default_rng(1).integers(0, 1 << wp, 8).astype(np.uint32)
     )
-    sums, counts = agg_ops.aggregate_scan_device(pdev, mdev, keys, interpret=True)
+    sums, counts = agg_ops.aggregate_scan_device(pdev, mdev, keys)
     esums = np.array(
         [m[p == k].astype(np.uint64).sum() for k in keys], np.uint64
     )
@@ -38,7 +38,7 @@ def test_aggregate_matches_oracle():
     p, m, pcol, mcol = _cols(wp, wm, n, seed=3)
     pdev, mdev = layout.to_device(pcol), layout.to_device(mcol)
     keys = np.arange(0, 16, dtype=np.uint32)
-    sums, counts = agg_ops.aggregate_scan_device(pdev, mdev, keys, interpret=True)
+    sums, counts = agg_ops.aggregate_scan_device(pdev, mdev, keys)
     osums, ocounts = oracle.aggregate_scan(pcol, mcol, keys)
     np.testing.assert_array_equal(sums, osums)
     np.testing.assert_array_equal(np.asarray(counts), ocounts)
@@ -50,7 +50,7 @@ def test_aggregate_key_zero_ignores_padding():
     p, m, pcol, mcol = _cols(wp, wm, n, seed=4)
     pdev, mdev = layout.to_device(pcol), layout.to_device(mcol)
     keys = np.array([0], np.uint32)
-    sums, counts = agg_ops.aggregate_scan_device(pdev, mdev, keys, interpret=True)
+    sums, counts = agg_ops.aggregate_scan_device(pdev, mdev, keys)
     assert int(counts[0]) == int((p == 0).sum())
     assert int(sums[0]) == int(m[p == 0].astype(np.uint64).sum())
 
@@ -63,7 +63,7 @@ def test_aggregate_split_headroom_wide_measure():
     pdev = layout.to_device(layout.pack(p, wp))
     mdev = layout.to_device(layout.pack(m, wm))
     sums, counts = agg_ops.aggregate_scan_device(
-        pdev, mdev, np.array([5], np.uint32), interpret=True
+        pdev, mdev, np.array([5], np.uint32)
     )
     assert int(counts[0]) == n
     assert int(sums[0]) == n * ((1 << 31) - 1)  # ~1.07e14, needs uint64
@@ -78,7 +78,7 @@ def test_aggregate_bitplane_static_parity_vs_numpy(wp, wm):
         np.random.default_rng(2).integers(0, 1 << wp, 12).astype(np.uint32)
     )
     counts, slo, shi = agg_ops.aggregate_bitplane_static_tiles(
-        pdev.tiles, mdev.tiles, keys, wp, wm, n, interpret=True
+        pdev.tiles, mdev.tiles, keys, wp, wm, n
     )
     sums = agg_ops.finalize_sums(slo, shi)
     esums = np.array(
@@ -98,7 +98,7 @@ def test_aggregate_bitplane_traced_parity_vs_numpy(wp, wm):
         np.random.default_rng(3).integers(0, 1 << wp, 9).astype(np.uint32)
     )
     counts, slo, shi = agg_ops.aggregate_bitplane_tiles(
-        pdev.tiles, mdev.tiles, jnp.asarray(keys), wp, wm, n, interpret=True
+        pdev.tiles, mdev.tiles, jnp.asarray(keys), wp, wm, n
     )
     sums = agg_ops.finalize_sums(slo, shi)
     esums = np.array(
@@ -116,7 +116,7 @@ def test_aggregate_bitplane_key_zero_ignores_padding():
     pdev, mdev = layout.to_device(pcol), layout.to_device(mcol)
     keys = np.array([0], np.uint32)
     counts, slo, shi = agg_ops.aggregate_bitplane_static_tiles(
-        pdev.tiles, mdev.tiles, keys, wp, wm, n, interpret=True
+        pdev.tiles, mdev.tiles, keys, wp, wm, n
     )
     assert int(counts[0]) == int((p == 0).sum())
     assert int(agg_ops.finalize_sums(slo, shi)[0]) == int(
@@ -130,7 +130,7 @@ def test_aggregate_bitplane_out_of_domain_key():
     pdev, mdev = layout.to_device(pcol), layout.to_device(mcol)
     keys = np.array([3, 1 << wp, 0xFFFFFFFF], np.uint32)
     counts, slo, shi = agg_ops.aggregate_bitplane_static_tiles(
-        pdev.tiles, mdev.tiles, keys, wp, wm, n, interpret=True
+        pdev.tiles, mdev.tiles, keys, wp, wm, n
     )
     sums = agg_ops.finalize_sums(slo, shi)
     assert int(counts[0]) == int((p == 3).sum())
@@ -149,7 +149,6 @@ def test_aggregate_bitplane_split_headroom_wide_measure():
     mdev = layout.to_device(layout.pack(m, wm))
     counts, slo, shi = agg_ops.aggregate_bitplane_static_tiles(
         pdev.tiles, mdev.tiles, np.array([5], np.uint32), wp, wm, n,
-        interpret=True,
     )
     assert int(counts[0]) == n
     assert int(agg_ops.finalize_sums(slo, shi)[0]) == n * ((1 << 31) - 1)
@@ -175,7 +174,7 @@ def test_aggregate_device_dispatch_parity():
     for k in (1, 2, 24, 32):
         keys = np.random.default_rng(k).permutation(1 << wp)[:k].astype(np.uint32)
         sums, counts = agg_ops.aggregate_scan_device(
-            pdev, mdev, keys, interpret=True
+            pdev, mdev, keys
         )
         esums = np.array(
             [m[p == kk].astype(np.uint64).sum() for kk in keys], np.uint64
@@ -193,7 +192,7 @@ def test_minmax_parity_vs_numpy(wp, wm):
     keys = np.unique(
         np.random.default_rng(2).integers(0, 1 << wp, 6).astype(np.uint32)
     )
-    mn, mx, counts = agg_ops.minmax_scan_device(pdev, mdev, keys, interpret=True)
+    mn, mx, counts = agg_ops.minmax_scan_device(pdev, mdev, keys)
     for j, key in enumerate(keys):
         sel = m[p == key]
         assert int(counts[j]) == sel.size
@@ -209,7 +208,7 @@ def test_minmax_empty_group_sentinels():
     pdev = layout.to_device(layout.pack(p, wp))
     mdev = layout.to_device(layout.pack(m, wm))
     keys = np.array([0, 7], np.uint32)  # key 7 matches nothing
-    mn, mx, counts = agg_ops.minmax_scan_device(pdev, mdev, keys, interpret=True)
+    mn, mx, counts = agg_ops.minmax_scan_device(pdev, mdev, keys)
     assert int(counts[0]) == n and int(counts[1]) == 0
     assert int(mn[0]) == (1 << 31) - 1 and int(mx[0]) == (1 << 31) - 1
     assert int(mn[1]) == 1 << 31  # empty: 2^wm
@@ -224,7 +223,7 @@ def test_minmax_key_zero_ignores_padding():
     pdev = layout.to_device(layout.pack(p, wp))
     mdev = layout.to_device(layout.pack(m, wm))
     mn, mx, counts = agg_ops.minmax_scan_device(
-        pdev, mdev, np.array([0], np.uint32), interpret=True
+        pdev, mdev, np.array([0], np.uint32)
     )
     assert int(counts[0]) == n
     assert int(mn[0]) == int(m.min())  # padding zeros must NOT leak in
@@ -236,12 +235,12 @@ def test_aggregate_validation():
     pdev, mdev = layout.to_device(pcol), layout.to_device(mcol)
     with pytest.raises(ValueError, match="1 <= k <= 32"):
         agg_ops.aggregate_scan_device(
-            pdev, mdev, np.arange(40, dtype=np.uint32), interpret=True
+            pdev, mdev, np.arange(40, dtype=np.uint32)
         )
     mdev2 = layout.to_device(layout.pack(m[: n - 100], wm))
     with pytest.raises(ValueError, match="column lengths differ"):
         agg_ops.aggregate_scan_device(
-            pdev, mdev2, np.arange(4, dtype=np.uint32), interpret=True
+            pdev, mdev2, np.arange(4, dtype=np.uint32)
         )
 
 
@@ -256,7 +255,7 @@ def test_sharded_aggregate_matches_single_chip():
     smdev = dist.shard_column(mdev, mesh)
     keys = np.arange(0, 8, dtype=np.uint32)
     sums, counts = dist.sharded_aggregate_scan(
-        spdev, smdev, keys, mesh, interpret=True
+        spdev, smdev, keys, mesh
     )
     esums = np.array([m[p == k].astype(np.uint64).sum() for k in keys], np.uint64)
     ecounts = np.array([(p == k).sum() for k in keys], np.uint32)
@@ -264,7 +263,7 @@ def test_sharded_aggregate_matches_single_chip():
     np.testing.assert_array_equal(sums, esums)
 
     mn, mx, counts2 = dist.sharded_minmax_scan(
-        spdev, smdev, keys, mesh, interpret=True
+        spdev, smdev, keys, mesh
     )
     for j, key in enumerate(keys):
         sel = m[p == key]
@@ -284,7 +283,7 @@ def test_masked_aggregate_parity_vs_numpy(wm):
     from shared_simd_scan_tpu import bitvector
 
     bits = bitvector.from_bool(jnp.asarray(mask))
-    s, c = agg_ops.masked_aggregate_device(mdev, bits, interpret=True)
+    s, c = agg_ops.masked_aggregate_device(mdev, bits)
     assert int(c) == int(mask.sum())
     assert int(s) == int(mvals[mask].astype(np.uint64).sum())
 
@@ -301,9 +300,8 @@ def test_masked_aggregate_from_query_tree():
     mdev = layout.to_device(layout.pack(mvals, 20))
     bits, _ = q.evaluate(
         q.Or(q.Range(pdev, 10, 50), q.In(pdev, [300, 301, 499])),
-        interpret=True,
     )
-    s, c = agg_ops.masked_aggregate_device(mdev, bits, interpret=True)
+    s, c = agg_ops.masked_aggregate_device(mdev, bits)
     mask = ((pvals >= 10) & (pvals < 50)) | np.isin(pvals, [300, 301, 499])
     assert int(c) == int(mask.sum())
     assert int(s) == int(mvals[mask].astype(np.uint64).sum())
@@ -318,7 +316,7 @@ def test_masked_aggregate_tail_bits_zero_by_invariant():
     from shared_simd_scan_tpu import bitvector
 
     bits = bitvector.from_bool(jnp.ones(n, bool))
-    s, c = agg_ops.masked_aggregate_device(mdev, bits, interpret=True)
+    s, c = agg_ops.masked_aggregate_device(mdev, bits)
     assert int(c) == n
     assert int(s) == int(mvals.astype(np.uint64).sum())
 
@@ -335,9 +333,9 @@ def test_sharded_masked_aggregate_matches_single_chip():
     spdev = dist.shard_column(layout.to_device(layout.pack(pvals, 9)), mesh)
     smdev = dist.shard_column(layout.to_device(layout.pack(mvals, 24)), mesh)
     bits, _ = q.evaluate_sharded(
-        q.Range(spdev, 100, 300), mesh, interpret=True
+        q.Range(spdev, 100, 300), mesh
     )
-    s, c = dist.sharded_masked_aggregate(smdev, bits, mesh, interpret=True)
+    s, c = dist.sharded_masked_aggregate(smdev, bits, mesh)
     mask = (pvals >= 100) & (pvals < 300)
     assert int(c) == int(mask.sum())
     assert int(s) == int(mvals[mask].astype(np.uint64).sum())
@@ -359,7 +357,7 @@ def test_sharded_aggregate_bitplane_dispatch():
     )
     assert agg_ops.pick_aggregate_tier(wp, wm, keys) == "bitplane"
     sums, counts = dist.sharded_aggregate_scan(
-        spdev, smdev, keys, mesh, interpret=True
+        spdev, smdev, keys, mesh
     )
     esums = np.array(
         [m[p == k].astype(np.uint64).sum() for k in keys], np.uint64

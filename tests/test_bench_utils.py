@@ -1,5 +1,5 @@
-"""Bench harness plumbing + utils tests (CPU-safe parts only; kernel
-timing itself needs the real chip and is exercised by bench.py)."""
+"""Bench harness plumbing + utils tests (CPU-safe parts only; device
+timing itself needs the card and is exercised by bench.py)."""
 import numpy as np
 
 from shared_simd_scan_tpu.bench import harness
@@ -30,28 +30,42 @@ def test_result_line_format_parsable():
     from shared_simd_scan_tpu.bench.timing import Measurement
 
     res = harness.BenchResult(
-        "pallas shared scan k=8", Measurement(0.00123, [0.0012, 0.0013], 8, 64), 10**9
+        "shared scan k=8", Measurement(0.00123, [0.0012, 0.0013]), 10**9
     )
     import io
     from contextlib import redirect_stdout
 
     buf = io.StringIO()
     with redirect_stdout(buf):
-        harness.print_result(res, roofline=819e9)
+        harness.print_result(res, roofline=harness.hbm_peak_bytes_per_s(
+            "NVIDIA H100 80GB HBM3"))
     out = buf.getvalue().splitlines()
     m = re.match(r"^\* (.+?): ([\d.]+) ms; \[([^\]]*)\] ms$", out[0])
-    assert m and m.group(1) == "pallas shared scan k=8"
-    assert "GB/s" in out[1] and "roofline" in out[1]
+    assert m and m.group(1) == "shared scan k=8"
+    assert "GB/s" in out[1] and "3350 GB/s peak" in out[1]
 
 
-def test_sweep_script_line_regex():
-    from scripts.prepare_shared_scan_results import GBS_RE, LINE_RE
+def test_hbm_peak_unknown_device_kind_raises():
+    # no peak is assumed: a device missing from the table is an error
+    import pytest
 
-    line = "* pallas shared scan k=8 tb=32: 2.831759 ms; [3.27, 2.83] ms"
-    m = LINE_RE.match(line)
-    assert m and float(m["avg"]) == 2.831759
-    g = GBS_RE.match("    358.1 GB/s (43.7% of 819 GB/s HBM roofline)")
-    assert g and float(g["gbs"]) == 358.1
+    assert harness.hbm_peak_bytes_per_s("NVIDIA H100 80GB HBM3") == 3.35e12
+    with pytest.raises(KeyError, match="no published memory bandwidth"):
+        harness.hbm_peak_bytes_per_s("cpu")
+
+
+def test_measure_times_each_call():
+    from shared_simd_scan_tpu.bench.timing import measure
+
+    calls = []
+
+    def fn(x):
+        calls.append(x)
+        return x
+
+    m = measure(fn, 3, reps=4)
+    assert len(calls) == 5  # warm-up + 4 timed calls
+    assert len(m.samples) == 4 and m.seconds >= 0
 
 
 def test_cli_parse_size():

@@ -43,7 +43,7 @@ def test_conj_range_parity(widths):
     lows = np.asarray([(1 << w) // 4 for w in widths], np.uint32)
     highs = np.asarray([3 * (1 << w) // 4 for w in widths], np.uint32)
     bits, count = conj_ops.conj_range_scan_device(
-        devs, lows, highs, interpret=True
+        devs, lows, highs
     )
     _check(bits, count, n, _expect(vals, lows, highs))
 
@@ -55,10 +55,10 @@ def test_conj_single_column_matches_range_scan():
     n = 9_000
     vals, devs = _cols((9,), n, seed=4)
     bits, count = conj_ops.conj_range_scan_device(
-        devs, [100], [300], interpret=True
+        devs, [100], [300]
     )
     rbits, rcounts = scan_ops.range_scan_device(
-        devs[0], [100], [300], interpret=True
+        devs[0], [100], [300]
     )
     np.testing.assert_array_equal(np.asarray(bits), np.asarray(rbits[0]))
     assert int(count) == int(rcounts[0])
@@ -75,7 +75,7 @@ def test_conj_eq_and_tail():
     devs = [
         layout.to_device(layout.pack(v, w)) for v, w in zip(vals, widths)
     ]
-    bits, count = conj_ops.conj_eq_scan_device(devs, [7, 3], interpret=True)
+    bits, count = conj_ops.conj_eq_scan_device(devs, [7, 3])
     expect = (vals[0] == 7) & (vals[1] == 3)
     assert int(count) == int(expect.sum()) >= 50
     _check(bits, count, n, expect)
@@ -87,13 +87,13 @@ def test_conj_empty_and_full_ranges():
     vals, devs = _cols(widths, n, seed=6)
     # empty range on column 1 -> zero matches, all bits zero
     bits, count = conj_ops.conj_range_scan_device(
-        devs, [0, 100], [512, 100], interpret=True
+        devs, [0, 100], [512, 100]
     )
     assert int(count) == 0
     assert not any(bitvector.to_bytes(bits, n))
     # full ranges -> every value matches (padding must stay masked)
     bits, count = conj_ops.conj_range_scan_device(
-        devs, [0, 0], [512, 512], interpret=True
+        devs, [0, 0], [512, 512]
     )
     expect = np.ones(n, dtype=bool)
     _check(bits, count, n, expect)
@@ -115,7 +115,7 @@ def test_conj_traced_predicates_inside_jit():
     @jax.jit
     def run(lows, highs):
         return conj_ops.conj_range_scan_tiles(
-            tiles, lows, highs, widths, n, interpret=True
+            tiles, lows, highs, widths, n
         )
 
     lows = np.asarray([50, 1000], np.uint32)
@@ -143,7 +143,7 @@ def test_sharded_conj_range_scan():
     lows = np.asarray([100, 512], np.uint32)
     highs = np.asarray([400, 1500], np.uint32)
     bits, count = dist.sharded_conj_range_scan(
-        sdevs, lows, highs, mesh, interpret=True
+        sdevs, lows, highs, mesh
     )
     expect = _expect(vals, lows, highs)
     assert int(count) == int(expect.sum())
@@ -162,7 +162,7 @@ def test_conj_inverted_bounds_are_empty():
     n = 5_000
     vals, devs = _cols((9,), n, seed=10)
     bits, count = conj_ops.conj_range_scan_device(
-        devs, [300], [100], interpret=True  # hi < lo: empty, not wrapped
+        devs, [300], [100]  # hi < lo: empty, not wrapped
     )
     assert int(count) == 0
     assert not any(bitvector.to_bytes(bits, n))

@@ -31,7 +31,7 @@ def test_dict_query_rewrite():
         q.Eq(dc, int(domain[150])),
         q.In(dc, [int(domain[5]), absent]),
     )
-    bits, count = dictcol.evaluate(expr, interpret=True)
+    bits, count = dictcol.evaluate(expr)
     expect = (
         ((vals >= lo) & (vals < hi))
         | (vals == domain[150])
@@ -46,7 +46,7 @@ def test_dict_query_rewrite():
 def test_dict_absent_eq_is_constant_false():
     vals, domain = _sparse_col(5_000, seed=3)
     dc = dictcol.pack_dict(vals)
-    bits, count = dictcol.evaluate(q.Eq(dc, int(domain[0]) + 1), interpret=True)
+    bits, count = dictcol.evaluate(q.Eq(dc, int(domain[0]) + 1))
     assert int(count) == 0
 
 
@@ -54,10 +54,10 @@ def test_dict_range_boundaries_are_order_preserving():
     vals = np.array([10, 10, 500, 500, 70_000], np.uint64)
     dc = dictcol.pack_dict(vals)
     # half-open [500, 70_000) must match only the 500s
-    bits, count = dictcol.evaluate(q.Range(dc, 500, 70_000), interpret=True)
+    bits, count = dictcol.evaluate(q.Range(dc, 500, 70_000))
     assert int(count) == 2
     # [10, 70_001) matches everything
-    _, count = dictcol.evaluate(q.Range(dc, 10, 70_001), interpret=True)
+    _, count = dictcol.evaluate(q.Range(dc, 10, 70_001))
     assert int(count) == 5
 
 
@@ -73,7 +73,7 @@ def test_dict_mixed_with_for_column():
         q.Range(dc, int(domain[20]), int(domain[180])),
         q.Range(fc, 9_100, 9_300),
     )
-    bits, count = dictcol.evaluate(expr, interpret=True)
+    bits, count = dictcol.evaluate(expr)
     expect = (
         (vals >= domain[20]) & (vals < domain[180])
         & (band >= 9_100) & (band < 9_300)
@@ -84,11 +84,11 @@ def test_dict_mixed_with_for_column():
 def test_dict_stats():
     vals, domain = _sparse_col(12_000, seed=6)
     dc = dictcol.pack_dict(vals)
-    d = dictcol.describe(dc, interpret=True)
+    d = dictcol.describe(dc)
     assert d["n"] == vals.size
     assert d["min"] == int(vals.min()) and d["max"] == int(vals.max())
     assert d["distinct"] == int(np.unique(vals).size)
-    top, counts = dictcol.topk_values(dc, 1, interpret=True)
+    top, counts = dictcol.topk_values(dc, 1)
     exp_val, exp_cnt = np.unique(vals, return_counts=True)
     assert int(counts[0]) == int(exp_cnt.max())
     assert int(top[0]) in set(exp_val[exp_cnt == exp_cnt.max()].tolist())
@@ -103,7 +103,7 @@ def test_pack_dict_width_validation():
 def test_topk_caps_at_dictionary_size():
     vals = np.array([10, 10, 500, 70_000], np.uint64)  # 3 distinct
     dc = dictcol.pack_dict(vals)
-    top, counts = dictcol.topk_values(dc, 10, interpret=True)
+    top, counts = dictcol.topk_values(dc, 10)
     assert top.shape[0] == 3 and int(counts[0]) == 2 and int(top[0]) == 10
 
 
@@ -111,5 +111,5 @@ def test_describe_mean_exact_for_64bit_domain():
     big = np.uint64(1) << np.uint64(62)
     vals = np.array([big, big, big + np.uint64(6)], np.uint64)
     dc = dictcol.pack_dict(vals)
-    d = dictcol.describe(dc, interpret=True)
+    d = dictcol.describe(dc)
     assert d["mean"] == (int(big) * 3 + 6) / 3

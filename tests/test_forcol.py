@@ -26,7 +26,7 @@ def test_for_query_rewrite_eq_range_in():
         q.Range(fc, 50_010, 50_050),
         q.In(fc, [50_200, 50_201, 49_000]),  # 49_000 out of band: dropped
     )
-    bits, count = forcol.evaluate(expr, interpret=True)
+    bits, count = forcol.evaluate(expr)
     expect = (
         (vals == 50_123)
         | ((vals >= 50_010) & (vals < 50_050))
@@ -41,10 +41,10 @@ def test_for_query_rewrite_eq_range_in():
 def test_for_out_of_band_predicates_are_constants():
     vals = _band_col(5_000, 100, 200, seed=3)
     fc = forcol.pack_for(vals)
-    bits, count = forcol.evaluate(q.Range(fc, 500, 900), interpret=True)
+    bits, count = forcol.evaluate(q.Range(fc, 500, 900))
     assert int(count) == 0
     bits, count = forcol.evaluate(
-        q.Not(q.Range(fc, 0, 1_000_000)), interpret=True
+        q.Not(q.Range(fc, 0, 1_000_000))
     )
     assert int(count) == 0  # full-band range matches everything
 
@@ -57,7 +57,6 @@ def test_for_mixed_with_plain_columns():
     plain = layout.to_device(layout.pack(plain_vals, 9))
     bits, count = forcol.evaluate(
         q.And(q.Range(fc, 7_100, 7_200), q.Range(plain, 0, 256)),
-        interpret=True,
     )
     expect = (vals >= 7_100) & (vals < 7_200) & (plain_vals < 256)
     assert int(count) == int(expect.sum())
@@ -71,7 +70,7 @@ def test_for_masked_aggregate_exact():
     import jax.numpy as jnp
 
     bits = bitvector.from_bool(jnp.asarray(mask))
-    s, c = forcol.masked_aggregate(fm, bits, interpret=True)
+    s, c = forcol.masked_aggregate(fm, bits)
     assert int(c) == int(mask.sum())
     assert int(s) == int(mvals[mask].astype(np.uint64).sum())
 
@@ -79,9 +78,9 @@ def test_for_masked_aggregate_exact():
 def test_for_stats_shifted():
     vals = _band_col(12_000, 90_000, 90_000 + 500, seed=8)
     fc = forcol.pack_for(vals)
-    d = forcol.describe(fc, interpret=True)
+    d = forcol.describe(fc)
     assert d["min"] == int(vals.min()) and d["max"] == int(vals.max())
-    qs = forcol.quantiles(fc, [0.5], interpret=True)
+    qs = forcol.quantiles(fc, [0.5])
     sv = np.sort(vals)
     assert int(qs[0]) == int(sv[max(1, int(np.ceil(0.5 * vals.size))) - 1])
 
@@ -101,6 +100,6 @@ def test_for_sharded_query():
     fc = forcol.pack_for(vals)
     sfc = forcol.ForColumn(base=fc.base, dev=dist.shard_column(fc.dev, mesh))
     expr = forcol.normalize(q.Range(sfc, 40_050, 40_300))
-    bits, count = q.evaluate_sharded(expr, mesh, interpret=True)
+    bits, count = q.evaluate_sharded(expr, mesh)
     expect = (vals >= 40_050) & (vals < 40_300)
     assert int(count) == int(expect.sum())

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 
 from shared_simd_scan_tpu import bitvector, layout
-from shared_simd_scan_tpu.ops import oracle, xla_kernels
+from shared_simd_scan_tpu.ops import oracle, scan as scan_ops
 
 try:
     from shared_simd_scan_tpu import host
@@ -34,7 +34,10 @@ def test_three_way_agreement(width, n, k, seed):
     dev = layout.to_device(col)
 
     obits, ocounts = oracle.shared_scan(col, keys)
-    xbits, xcounts = xla_kernels.shared_scan_device_xla(dev, keys)
+    xbits, xcounts = scan_ops.shared_scan_tiles(
+        dev.tiles, keys, width, n, backend="xla"
+    )
+    xbits = scan_ops.bits_to_canonical(xbits, n)
     np.testing.assert_array_equal(np.asarray(xbits), np.asarray(obits))
     np.testing.assert_array_equal(np.asarray(xcounts), np.asarray(ocounts))
 

@@ -133,12 +133,12 @@ def test_fuzz_plain_trees_and_aggregates():
         tree = _rand_tree(rng, cols, depth=3)
         expect, u = _ref_tu(tree, data)
         assert not u.any()  # plain columns: never unknown
-        bits, count = q.evaluate(tree, interpret=True)
+        bits, count = q.evaluate(tree)
         _check_bits(bits, count, expect)
         assert isinstance(q.explain(tree), str)  # planner smoke
         if case % 10 == 0:
             s, c = agg_ops.masked_aggregate_device(
-                mdev, bits, interpret=True
+                mdev, bits
             )
             assert int(c) == int(expect.sum())
             assert int(s) == int(mvals[expect].astype(np.uint64).sum())
@@ -155,7 +155,7 @@ def test_fuzz_nullable_trees():
     for _ in range(30):
         tree = _rand_tree(rng, cols, depth=3)
         expect, _ = _ref_tu(tree, data)
-        bits, count = nullable.evaluate(tree, interpret=True)
+        bits, count = nullable.evaluate(tree)
         _check_bits(bits, count, expect)
 
 
@@ -187,7 +187,7 @@ def test_fuzz_for_dict_trees():
             ((dvals >= dlo) & (dvals < dhi))
             | np.isin(dvals, np.asarray(dkeys, np.uint64))
         )
-        bits, count = dictcol.evaluate(tree, interpret=True)
+        bits, count = dictcol.evaluate(tree)
         _check_bits(bits, count, expect)
 
 
@@ -222,6 +222,6 @@ def test_fuzz_sharded_matches_local():
         expect, _ = _ref_tu(_to_local(tree), {
             id(orig): data[id(orig)] for orig, _, _, _ in cols
         })
-        bits_s, count_s = q.evaluate_sharded(tree, mesh, interpret=True)
+        bits_s, count_s = q.evaluate_sharded(tree, mesh)
         flat = np.asarray(bits_s).reshape(-1)[: layout.bitvector_words(N)]
         _check_bits(jnp.asarray(flat), count_s, expect)

@@ -76,7 +76,7 @@ def test_interleave_bytes_matches_numpy():
         pytest.skip("host lib unavailable")
     rng = np.random.default_rng(11)
     # k=8 AVX2 16B-store path, k=16 8B-store path, k=5 scalar path,
-    # k%4 quad path (k=4/12/20, round 5), ragged nbytes (sub-32-group
+    # k%4 quad path (k=4/12/20), ragged nbytes (sub-32-group
     # tails) on each
     for k, stride, nbytes in (
         (8, 9000, 9000), (8, 100, 97), (16, 5000, 4999), (5, 300, 300),

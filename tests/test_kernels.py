@@ -1,9 +1,10 @@
-"""Pallas kernel parity tests vs the jnp oracle (interpret mode on CPU).
+"""Tier parity tests vs the jnp oracle (XLA tiers compiled on the CPU,
+Triton-driver tiers interpreted).
 
 Mirrors the reference's oracle test pattern (test/simd_scan_tests.cpp):
-vectorized kernels checked against scalar-semantics oracles on the Catch2
-corpora plus randomized widths — but covering EVERY kernel, closing the
-reference's coverage gap (SURVEY.md §4).
+vectorized tiers checked against scalar-semantics oracles on the Catch2
+corpora plus randomized widths — but covering EVERY tier and both
+drivers, closing the reference's coverage gap (SURVEY.md §4).
 """
 import json
 import pathlib
@@ -35,13 +36,13 @@ def test_unpack_kernel_parity(width):
     n = 10_000
     vals = _rand_column(width, n, seed=width)
     dev = layout.pack_device(vals, width)
-    out = unpack_ops.unpack_device(dev, interpret=True)
+    out = unpack_ops.unpack_device(dev)
     np.testing.assert_array_equal(np.asarray(out), vals)
 
 
 def test_unpack_kernel_ramp509_golden():
     dev = layout.pack_device(jnp.asarray(RAMP509), 9)
-    out = unpack_ops.unpack_device(dev, interpret=True)
+    out = unpack_ops.unpack_device(dev)
     np.testing.assert_array_equal(np.asarray(out), RAMP509)
     np.testing.assert_array_equal(
         np.asarray(out[:16]), np.array(GOLDEN["ramp509_decompressed_first16"])
@@ -53,8 +54,8 @@ def test_pack_kernel_roundtrip(width):
     n = 33 * 128 + 17  # exercise partial block + partial lane tile
     vals = _rand_column(width, n, seed=100 + width)
     dev = layout.pack_device(vals, width)
-    unpacked_dev_layout = unpack_ops.unpack_tiles(dev.tiles, width, interpret=True)
-    repacked = unpack_ops.pack_tiles(unpacked_dev_layout, width, interpret=True)
+    unpacked_dev_layout = unpack_ops.unpack_tiles(dev.tiles, width)
+    repacked = unpack_ops.pack_tiles(unpacked_dev_layout, width)
     np.testing.assert_array_equal(np.asarray(repacked), np.asarray(dev.tiles))
 
 
@@ -65,7 +66,7 @@ def test_scan_kernel_parity(width):
     key = int(vals[7])
     col = layout.pack(vals, width)
     dev = layout.to_device(col)
-    bits, hits = scan_ops.scan_device(dev, key, interpret=True)
+    bits, hits = scan_ops.scan_device(dev, key)
     obits, ohits = oracle.scan(col, key)
     np.testing.assert_array_equal(np.asarray(bits), np.asarray(obits))
     assert int(hits) == int(ohits) == int(np.sum(vals == key))
@@ -73,14 +74,14 @@ def test_scan_kernel_parity(width):
 
 def test_scan_kernel_golden_tiny12():
     dev = layout.pack_device(jnp.asarray(TINY12), 9)
-    bits, hits = scan_ops.scan_device(dev, 3, interpret=True)
+    bits, hits = scan_ops.scan_device(dev, 3)
     assert int(hits) == GOLDEN["tiny12_scan3_hits"] == 4
     assert bitvector.to_bytes(bits, 12) == bytes(GOLDEN["tiny12_scan3_bits"])
 
 
 def test_scan_kernel_golden_ramp509():
     dev = layout.pack_device(jnp.asarray(RAMP509), 9)
-    bits, hits = scan_ops.scan_device(dev, 3, interpret=True)
+    bits, hits = scan_ops.scan_device(dev, 3)
     assert int(hits) == GOLDEN["ramp509_scan3_hits"]
     assert bitvector.to_bytes(bits, 509) == bytes(GOLDEN["ramp509_scan3_bits"])
 
@@ -92,7 +93,7 @@ def test_shared_scan_kernel_parity(k):
     keys = np.arange(k, dtype=np.uint32)
     col = layout.pack(vals, width)
     dev = layout.to_device(col)
-    bits, counts = scan_ops.shared_scan_device(dev, keys, interpret=True)
+    bits, counts = scan_ops.shared_scan_device(dev, keys)
     obits, ocounts = oracle.shared_scan(col, keys)
     np.testing.assert_array_equal(np.asarray(bits), np.asarray(obits))
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
@@ -105,7 +106,7 @@ def test_shared_scan_padding_bits_zero():
     width, n = 9, 100  # far below one lane tile (128 blocks)
     vals = _rand_column(width, n, seed=5)
     dev = layout.pack_device(vals, width)
-    bits, counts = scan_ops.shared_scan_device(dev, np.array([0], np.uint32), interpret=True)
+    bits, counts = scan_ops.shared_scan_device(dev, np.array([0], np.uint32))
     assert int(counts[0]) == int(np.sum(vals == 0))
     assert np.asarray(bitvector.to_bool(bits[0], n)).sum() == int(counts[0])
 
@@ -116,26 +117,96 @@ def test_shared_scan_linear_kernel_parity():
     keys = np.arange(k, dtype=np.uint32)
     col = layout.pack(vals, width)
     dev = layout.to_device(col)
-    lin = scan_ops.shared_scan_linear_device(dev, keys, interpret=True)
+    lin = scan_ops.shared_scan_linear_device(dev, keys)
     olin = oracle.shared_scan_linear(col, keys)
     np.testing.assert_array_equal(np.asarray(lin), np.asarray(olin))
 
 
-@pytest.mark.parametrize("k", [3, 40])
-def test_shared_scan_dynamic_kernel_parity(k):
-    width, n = 9, 15_000
+TIER_CASES = [
+    ("compare", k, "xla") for k in (1, 3, 8, 33, 64, 100, 256)
+] + [("compare", k, "triton") for k in (1, 3, 8)] + [
+    ("bitsliced", 3, "xla"), ("bitsliced", 40, "xla"),
+    ("bitsliced", 3, "triton"), ("bitsliced", 8, "triton"),
+    ("bitsliced", 20, "triton"),
+    ("static", 8, "xla"), ("static", 48, "xla"),
+    ("static", 8, "triton"), ("static", 20, "triton"),
+    ("interval", 8, "xla"), ("interval", 40, "xla"), ("interval", 100, "xla"),
+    ("interval", 1, "triton"), ("interval", 8, "triton"),
+    ("interval", 32, "triton"), ("interval", 33, "triton"),
+]
+
+
+def _tier_call(tier, tiles, keys, width, n, backend):
+    if tier == "compare":
+        return scan_ops.shared_scan_tiles(tiles, jnp.asarray(keys), width, n,
+                                          backend=backend)
+    if tier == "bitsliced":
+        return scan_ops.shared_scan_bitsliced_tiles(
+            tiles, jnp.asarray(keys), width, n, backend=backend)
+    if tier == "static":
+        return scan_ops.shared_scan_bitsliced_static_tiles(
+            tiles, keys, width, n, backend=backend)
+    return scan_ops.interval_scan_tiles(
+        tiles, int(keys[0]), len(keys), width, n, backend=backend)
+
+
+@pytest.mark.parametrize("tier,k,backend", TIER_CASES)
+def test_tier_driver_parity(tier, k, backend):
+    # every tier body under both drivers (Triton interpreted on the CPU)
+    # against the oracle; ragged n exercises the validity tail
+    width, n = 9, 15_001
     vals = _rand_column(width, n, seed=60 + k)
     col = layout.pack(vals, width)
     dev = layout.to_device(col)
-    keys = (np.arange(k, dtype=np.uint32) * 7 + 1) % (1 << width)  # arbitrary
-    bits, counts = scan_ops.shared_scan_dynamic_tiles(
-        dev.tiles, jnp.asarray(keys), width, n, interpret=True
-    )
+    if tier == "interval":
+        keys = np.arange(7, 7 + k, dtype=np.uint32)
+    else:
+        keys = (np.arange(k, dtype=np.uint32) * 11 + 5) % (1 << width)
+    bits, counts = _tier_call(tier, dev.tiles, keys, width, n, backend)
     obits, ocounts = oracle.shared_scan(col, keys)
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
     np.testing.assert_array_equal(
         np.asarray(scan_ops.bits_to_canonical(bits, n)), np.asarray(obits)
     )
+
+
+def test_dispatch_routes_tiers_to_drivers():
+    # the static driver choice: TRITON_TIERS run a Pallas (Triton)
+    # program up to their key cap, everything else is plain XLA
+    import jax
+
+    width, n = 9, 5_000
+    tiles = layout.pack_device(_rand_column(width, n, seed=1), width).tiles
+
+    def has_pallas(fn):
+        return "pallas_call" in str(jax.make_jaxpr(fn)(tiles))
+
+    assert "interval" in scan_ops.TRITON_TIERS
+    assert has_pallas(lambda t: scan_ops.interval_scan_tiles(t, 0, 8, width, n))
+    assert not has_pallas(
+        lambda t: scan_ops.interval_scan_tiles(
+            t, 0, scan_ops.TRITON_TIERS["interval"] + 1, width, n))
+    assert not has_pallas(
+        lambda t: scan_ops.windowed_scan_tiles(t, np.arange(8), width, n))
+    assert not has_pallas(
+        lambda t: scan_ops.interval_scan_tiles(t, 0, 8, width, n, backend="xla"))
+    with pytest.raises(ValueError, match="backend"):
+        scan_ops.interval_scan_tiles(tiles, 0, 8, width, n, backend="mosaic")
+
+
+def test_triton_interpret_switch(monkeypatch):
+    # the one interpret switch: interpreted on the CPU, compiled on the
+    # GPU, an error anywhere else
+    import jax
+
+    from shared_simd_scan_tpu.ops import driver
+
+    assert driver.triton_interpret() is True
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert driver.triton_interpret() is False
+    monkeypatch.setattr(jax, "default_backend", lambda: "rocm")
+    with pytest.raises(RuntimeError, match="not on .rocm."):
+        driver.triton_interpret()
 
 
 def test_shared_scan_device_dispatch_large_k():
@@ -143,39 +214,20 @@ def test_shared_scan_device_dispatch_large_k():
     vals = _rand_column(width, n, seed=3)
     dev = layout.pack_device(vals, width)
     keys = (np.arange(k, dtype=np.uint32) * 5 + 2) % (1 << width)
-    bits, counts = scan_ops.shared_scan_device(dev, keys, interpret=True)
+    bits, counts = scan_ops.shared_scan_device(dev, keys)
     for j in range(k):
         assert int(counts[j]) == int((vals == keys[j]).sum())
 
 
-@pytest.mark.parametrize("k", [33, 64, 100, 256])
-def test_chunked_shared_scan_parity(k):
-    # arbitrary (non-consecutive) keys through the 32-key-chunked static
-    # kernel, cross-checked against the oracle
-    width, n = 9, 50_000
-    vals = _rand_column(width, n, seed=k)
-    col = layout.pack(vals, width)
-    dev = layout.to_device(col)
-    keys = (np.arange(k, dtype=np.uint32) * 11 + 5) % (1 << width)
-    bits, counts = scan_ops.shared_scan_chunked_tiles(
-        dev.tiles, jnp.asarray(keys), width, n, interpret=True
-    )
-    obits, ocounts = oracle.shared_scan(col, keys)
-    np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
-    np.testing.assert_array_equal(
-        np.asarray(scan_ops.bits_to_canonical(bits, n)), np.asarray(obits)
-    )
-
-
 def test_chunked_dispatch_used_above_32():
-    # shared_scan_device must route k>32 arbitrary keys via the chunked
-    # kernel and still match the oracle
+    # shared_scan_device must route k>32 arbitrary keys through its
+    # dispatch and still match the oracle
     width, n, k = 7, 20_000, 40
     vals = _rand_column(width, n, seed=9)
     col = layout.pack(vals, width)
     dev = layout.to_device(col)
     keys = (np.arange(k, dtype=np.uint32) * 3 + 1) % (1 << width)
-    bits, counts = scan_ops.shared_scan_device(dev, keys, interpret=True)
+    bits, counts = scan_ops.shared_scan_device(dev, keys)
     obits, ocounts = oracle.shared_scan(col, keys)
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
     np.testing.assert_array_equal(np.asarray(bits), np.asarray(obits))
@@ -183,7 +235,7 @@ def test_chunked_dispatch_used_above_32():
 
 @pytest.mark.parametrize("k", [1, 5, 8, 32, 33, 64, 100, 256])
 def test_bitsliced_shared_scan_parity(k):
-    # arbitrary spread keys through the bit-sliced (bit-plane) kernel,
+    # arbitrary spread keys through the bit-sliced (bit-plane) tier,
     # cross-checked against the oracle
     width, n = 9, 50_000
     vals = _rand_column(width, n, seed=k)
@@ -191,7 +243,7 @@ def test_bitsliced_shared_scan_parity(k):
     dev = layout.to_device(col)
     keys = (np.arange(k, dtype=np.uint32) * 11 + 5) % (1 << width)
     bits, counts = scan_ops.shared_scan_bitsliced_tiles(
-        dev.tiles, jnp.asarray(keys), width, n, interpret=True
+        dev.tiles, jnp.asarray(keys), width, n
     )
     obits, ocounts = oracle.shared_scan(col, keys)
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
@@ -210,7 +262,7 @@ def test_bitsliced_shared_scan_widths(width):
     rng = np.random.default_rng(width)
     keys = rng.integers(0, width_dom, k, dtype=np.uint32)
     bits, counts = scan_ops.shared_scan_bitsliced_tiles(
-        dev.tiles, jnp.asarray(keys), width, n, interpret=True
+        dev.tiles, jnp.asarray(keys), width, n
     )
     obits, ocounts = oracle.shared_scan(col, keys)
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
@@ -228,7 +280,7 @@ def test_bitsliced_out_of_domain_and_padding():
     dev = layout.pack_device(vals, width)
     keys = np.array([0, 512, 513, int(vals[3]) + 512, 0xFFFFFFFF], np.uint32)
     bits, counts = scan_ops.shared_scan_bitsliced_tiles(
-        dev.tiles, jnp.asarray(keys), width, n, interpret=True
+        dev.tiles, jnp.asarray(keys), width, n
     )
     assert int(counts[0]) == int((vals == 0).sum())
     assert np.asarray(counts)[1:].sum() == 0
@@ -237,17 +289,17 @@ def test_bitsliced_out_of_domain_and_padding():
 
 @pytest.mark.parametrize("k", [1, 2, 8, 32, 33, 100, 256, 300])
 def test_bitsliced_static_shared_scan_parity(k):
-    # concrete spread keys through the static AND-DAG bit-sliced kernel
+    # concrete spread keys through the static AND-DAG bit-sliced tier
     # (shared memoized combo tree instead of the per-key XOR+AND fold),
-    # cross-checked against the oracle.  k=300 exercises the multi-group
-    # (> 8 chunk branches -> multiple pallas_calls) path.
+    # cross-checked against the oracle.  k=300 exercises one DAG over
+    # more keys than the dispatch's cost-model groups.
     width, n = 9, 50_000
     vals = _rand_column(width, n, seed=k + 1000)
     col = layout.pack(vals, width)
     dev = layout.to_device(col)
     keys = (np.arange(k, dtype=np.uint32) * 11 + 5) % (1 << width)
     bits, counts = scan_ops.shared_scan_bitsliced_static_tiles(
-        dev.tiles, keys, width, n, interpret=True
+        dev.tiles, keys, width, n
     )
     obits, ocounts = oracle.shared_scan(col, keys)
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
@@ -266,7 +318,7 @@ def test_bitsliced_static_shared_scan_widths(width):
     rng = np.random.default_rng(width + 50)
     keys = rng.integers(0, width_dom, k, dtype=np.uint32)
     bits, counts = scan_ops.shared_scan_bitsliced_static_tiles(
-        dev.tiles, keys, width, n, interpret=True
+        dev.tiles, keys, width, n
     )
     obits, ocounts = oracle.shared_scan(col, keys)
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
@@ -285,7 +337,7 @@ def test_bitsliced_static_out_of_domain_and_padding():
         [0, 512, int(vals[3]) + 512, 0xFFFFFFFF, 0, int(vals[3])], np.uint32
     )
     bits, counts = scan_ops.shared_scan_bitsliced_static_tiles(
-        dev.tiles, keys, width, n, interpret=True
+        dev.tiles, keys, width, n
     )
     counts = np.asarray(counts)
     assert counts[0] == (vals == 0).sum() == counts[4]
@@ -304,7 +356,7 @@ def test_bitsliced_static_rejects_traced_keys():
     @jax.jit
     def run(keys):
         return scan_ops.shared_scan_bitsliced_static_tiles(
-            dev.tiles, keys, width, n, interpret=True
+            dev.tiles, keys, width, n
         )
 
     with pytest.raises(TypeError, match="concrete keys"):
@@ -313,7 +365,7 @@ def test_bitsliced_static_rejects_traced_keys():
 
 def test_shared_scan_device_dispatches_static_dag_for_spread_keys():
     # concrete spread keys must reach the static AND-DAG tier (not the
-    # dynamic bit-sliced kernel, and not the traced compare fallback)
+    # traced bit-sliced tier, and not the traced compare fallback)
     import jax
 
     width, n = 9, 5000
@@ -323,20 +375,20 @@ def test_shared_scan_device_dispatches_static_dag_for_spread_keys():
 
     def f(tiles):
         d = layout.DeviceColumn(width=width, n=n, tiles=tiles)
-        return scan_ops.shared_scan_device(d, keys, interpret=True)[1]
+        return scan_ops.shared_scan_device(d, keys)[1]
 
     s = str(jax.make_jaxpr(f)(dev_tiles))
-    assert "_bitsliced_static_tiles_impl" in s
+    assert "_static_impl" in s
     # and the result is right
     d = layout.DeviceColumn(width=width, n=n, tiles=dev_tiles)
-    _, counts = scan_ops.shared_scan_device(d, keys, interpret=True)
+    _, counts = scan_ops.shared_scan_device(d, keys)
     for j in range(8):
         assert int(counts[j]) == int((vals == keys[j]).sum())
 
 
 def test_bitsliced_traced_keys():
-    # nothing inspects key VALUES, so the kernel must work with keys
-    # produced inside a jit trace (the dynamic-kernel use case)
+    # nothing inspects key VALUES, so the tier must work with keys
+    # produced inside a jit trace
     import jax
 
     width, n, k = 9, 10_000, 48
@@ -347,7 +399,7 @@ def test_bitsliced_traced_keys():
     def run(base):
         keys = (base + jnp.arange(k, dtype=jnp.uint32) * 13) % 512
         return scan_ops.shared_scan_bitsliced_tiles(
-            dev.tiles, keys, width, n, interpret=True
+            dev.tiles, keys, width, n
         )
 
     _, counts = run(jnp.uint32(5))
@@ -358,7 +410,7 @@ def test_bitsliced_traced_keys():
 
 @pytest.mark.parametrize("spread", ["clustered", "spread", "dupes"])
 def test_windowed_scan_parity(spread):
-    # arbitrary concrete keys via the 32-aligned-window kernel
+    # arbitrary concrete keys via the 32-aligned-window tier
     width, n = 9, 40_000
     vals = _rand_column(width, n, seed=3)
     col = layout.pack(vals, width)
@@ -371,7 +423,7 @@ def test_windowed_scan_parity(spread):
     else:
         keys = np.array([7, 7, 300, 300, 12], np.uint32)  # duplicates
     bits, counts = scan_ops.windowed_scan_tiles(
-        dev.tiles, keys, width, n, interpret=True
+        dev.tiles, keys, width, n
     )
     obits, ocounts = oracle.shared_scan(col, keys)
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
@@ -381,7 +433,7 @@ def test_windowed_scan_parity(spread):
 
 
 def test_windowed_dispatch_cost_rule():
-    # clustered keys dispatch to the windowed kernel; spread keys do not
+    # clustered keys dispatch to the windowed tier; spread keys do not
     clustered = np.arange(16, dtype=np.uint32).reshape(2, 8)
     clustered = (clustered + np.array([[64], [256]], np.uint32)).reshape(-1)
     assert scan_ops.windowed_cost(clustered) < 12 * clustered.shape[0]
@@ -393,7 +445,7 @@ def test_windowed_dispatch_cost_rule():
     col = layout.pack(vals, width)
     dev = layout.to_device(col)
     for keys in (clustered, spread):
-        bits, counts = scan_ops.shared_scan_device(dev, keys, interpret=True)
+        bits, counts = scan_ops.shared_scan_device(dev, keys)
         obits, ocounts = oracle.shared_scan(col, keys)
         np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
         np.testing.assert_array_equal(np.asarray(bits), np.asarray(obits))
@@ -401,10 +453,8 @@ def test_windowed_dispatch_cost_rule():
 
 @pytest.mark.parametrize("k", [49, 96, 130, 300])
 def test_windowed_chunked_parity(k):
-    # k > 48 goes through the chunked windowed kernel (32-row chunks on a
-    # second grid dim); clustered keys, uneven tail chunk, oracle parity.
-    # k=300 exercises the 256-row group split (two kernel calls, uneven
-    # second group) with concatenated outputs
+    # k > 48 clustered keys through the windowed tier (the cost model
+    # prices them per 32-row chunk); oracle parity up to k=300
     width, n = 9, 40_000
     vals = _rand_column(width, n, seed=k)
     col = layout.pack(vals, width)
@@ -416,7 +466,7 @@ def test_windowed_chunked_parity(k):
         (bases[:, None] + np.arange(8, dtype=np.uint32)).reshape(-1)[:k]
     ).astype(np.uint32)
     bits, counts = scan_ops.windowed_scan_tiles(
-        dev.tiles, keys, width, n, interpret=True
+        dev.tiles, keys, width, n
     )
     assert bits.shape[0] == k and counts.shape[0] == k
     obits, ocounts = oracle.shared_scan(col, keys)
@@ -427,7 +477,7 @@ def test_windowed_chunked_parity(k):
 
 
 def test_windowed_chunked_dispatch_large_k():
-    # clustered concrete keys at k > 48 dispatch via the windowed kernel
+    # clustered concrete keys at k > 48 dispatch via the windowed tier
     # (cost rule) and match the oracle end-to-end; a spread set of the
     # same size does not satisfy the cost rule
     width, n, k = 9, 20_000, 64
@@ -442,7 +492,7 @@ def test_windowed_chunked_dispatch_large_k():
     col = layout.pack(vals, width)
     dev = layout.to_device(col)
     for keys in (clustered, spread):
-        bits, counts = scan_ops.shared_scan_device(dev, keys, interpret=True)
+        bits, counts = scan_ops.shared_scan_device(dev, keys)
         obits, ocounts = oracle.shared_scan(col, keys)
         np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
         np.testing.assert_array_equal(np.asarray(bits), np.asarray(obits))
@@ -473,217 +523,80 @@ def test_shared_scan_linear_parity_k(k):
     )
     col = layout.pack(vals, width)
     dev = layout.to_device(col)
-    lin = scan_ops.shared_scan_linear_device(dev, keys, interpret=True)
+    lin = scan_ops.shared_scan_linear_device(dev, keys)
     olin = oracle.shared_scan_linear(col, keys)
     np.testing.assert_array_equal(np.asarray(lin), np.asarray(olin))
 
 
-def test_interleave_linear_fast_path_matches_fallback():
-    # the k % 4 == 0 SWAPMOVE quad formulation vs the generic byte
-    # expansion, both branches of _interleave_linear (incl. the chunked
-    # w > 65536 form at a non-chunk-aligned w)
-    rng = np.random.default_rng(3)
-    for k, w in ((4, 257), (8, 1024), (16, 77), (8, 70_000)):
-        bits = rng.integers(0, 2**32, size=(k, w), dtype=np.uint32)
-        nbytes = w * 4 - 2
-        got = np.asarray(
-            scan_ops._interleave_linear(jnp.asarray(bits), nbytes)
-        )
-        exp = bits.view(np.uint8).reshape(k, -1)[:, :nbytes].T.reshape(-1)
-        np.testing.assert_array_equal(got, exp)
-
-
-def test_interleave_mxu_matches_byte_oracle():
-    # the MXU permutation relayout (ops/linear.py) must be bit-exact vs
-    # the plain byte-transpose at every supported k, including ragged
-    # word counts (row padding sliced off) and full-range word values
-    # (bf16 byte-plane exactness)
-    from shared_simd_scan_tpu.ops import linear as linear_ops
-
-    rng = np.random.default_rng(9)
-    for k, w in ((4, 257), (8, 1024), (12, 77), (16, 130), (8, 9_000)):
-        bits = rng.integers(0, 2**32, size=(k, w), dtype=np.uint32)
-        nbytes = w * 4 - 3
-        exp = bits.view(np.uint8).reshape(k, -1)[:, :nbytes].T.reshape(-1)
-        for dot in ("bf16", "f32", "s8"):
-            got = np.asarray(
-                linear_ops.interleave_mxu_tiles(
-                    jnp.asarray(bits), nbytes, interpret=True, dot=dot
-                )
-            )
-            np.testing.assert_array_equal(got, exp, err_msg=f"{k=} {dot=}")
-
-
-@pytest.mark.parametrize("k,width", [(4, 9), (8, 9), (16, 9), (8, 13)])
-@pytest.mark.parametrize("dot", ["bf16", "s8"])
-def test_fused_interval_linear_matches_oracle(k, width, dot):
-    # fused scan+interleave kernel: linear words + counts must match the
-    # two-kernel path's byte contract and the numpy oracle, including
-    # the n tail (bits past n zero) and out-of-domain key rows
-    from shared_simd_scan_tpu.ops import scan as scan_ops
-
-    rng = np.random.default_rng(31)
-    n = 40_000 - 7
-    vals = rng.integers(0, 512, n, dtype=np.uint32)
-    dev = layout.to_device(layout.pack(vals, width))
-    lo = 500  # keys 500..500+k-1 spill past the 9-bit domain for k>12
-    words, counts = scan_ops.interval_scan_linear_words_tiles(
-        dev.tiles, lo, k, width, n, interpret=True, dot=dot
-    )
+def _linear_oracle(vals, keys, n):
     nbytes = (n + 7) // 8
-    exp_bits = np.zeros((k, nbytes * 8), np.uint8)
-    for j in range(k):
-        if lo + j < (1 << width):
-            exp_bits[j, :n] = vals == lo + j
-    exp_lin = np.packbits(
-        exp_bits.reshape(k, nbytes, 8), axis=-1, bitorder="little"
-    ).reshape(k, nbytes).T.reshape(-1)
-    got = np.asarray(words).view(np.uint8)[: nbytes * k]
-    np.testing.assert_array_equal(got, exp_lin)
-    np.testing.assert_array_equal(
-        np.asarray(counts), exp_bits.sum(axis=1).astype(np.uint32)
-    )
+    eb = np.zeros((len(keys), nbytes * 8), np.uint8)
+    for j, key in enumerate(keys):
+        eb[j, :n] = vals == key
+    return np.packbits(
+        eb.reshape(len(keys), nbytes, 8), axis=-1, bitorder="little"
+    ).reshape(len(keys), nbytes).T.reshape(-1)
 
 
-@pytest.mark.parametrize("k,width", [(4, 9), (8, 9), (16, 9), (8, 13)])
-@pytest.mark.parametrize("dot", ["bf16", "s8"])
-def test_fused_static_linear_matches_oracle(k, width, dot):
-    # fused static-DAG scan+interleave kernel (ARBITRARY concrete keys):
-    # linear words + counts vs the numpy oracle, including the n tail
-    # and out-of-domain key rows
-    from shared_simd_scan_tpu.ops import scan as scan_ops
+@pytest.mark.parametrize(
+    "k,w", [(1, 5), (3, 300), (4, 257), (6, 300), (8, 1024), (12, 77),
+            (20, 300), (8, 9_000)]
+)
+def test_interleave_linear_matches_byte_oracle(k, w):
+    # the plain byte transpose against numpy on ragged byte counts
+    rng = np.random.default_rng(13 + k)
+    bits = rng.integers(0, 2**32, size=(k, w), dtype=np.uint32)
+    nbytes = w * 4 - 3
+    got = np.asarray(scan_ops.interleave_linear(jnp.asarray(bits), nbytes))
+    exp = bits.view(np.uint8).reshape(k, -1)[:, :nbytes].T.reshape(-1)
+    np.testing.assert_array_equal(got, exp)
 
-    rng = np.random.default_rng(33)
-    n = 40_000 - 7
+
+@pytest.mark.parametrize("kind", ["consecutive", "spread", "traced"])
+@pytest.mark.parametrize("k", [4, 8, 12, 16, 20, 24, 32, 64])
+def test_linear_export_parity(k, kind):
+    # linear export = the shared scan's dispatch + the byte interleave,
+    # as uint32 words, for concrete consecutive / spread and traced keys
+    import jax
+
+    rng = np.random.default_rng(57 + k)
+    width = 9 if k % 8 else 11
+    n = int(rng.integers(5_000, 12_000))
     vals = rng.integers(0, 1 << width, n, dtype=np.uint32)
     dev = layout.to_device(layout.pack(vals, width))
-    # spread keys, one pushed out of domain
-    keys = ((np.arange(k, dtype=np.uint32) * 97 + 11) % (1 << width))
-    keys[-1] = (1 << width) + 3  # out-of-domain -> zero row
-    words, counts = scan_ops.static_scan_linear_words_tiles(
-        dev.tiles, keys, width, n, interpret=True, dot=dot
-    )
+    if kind == "consecutive":
+        keys = np.arange(40, 40 + k, dtype=np.uint32)
+    else:
+        keys = np.unique(rng.integers(0, 1 << width, 4 * k, dtype=np.uint32))[:k]
+    if kind == "traced":
+        words = jax.jit(
+            lambda kv: scan_ops.shared_scan_linear_words_device(dev, kv)
+        )(jnp.asarray(keys))
+    else:
+        words = scan_ops.shared_scan_linear_words_device(dev, keys)
     nbytes = (n + 7) // 8
-    exp_bits = np.zeros((k, nbytes * 8), np.uint8)
-    for j in range(k):
-        if keys[j] < (1 << width):
-            exp_bits[j, :n] = vals == keys[j]
-    exp_lin = np.packbits(
-        exp_bits.reshape(k, nbytes, 8), axis=-1, bitorder="little"
-    ).reshape(k, nbytes).T.reshape(-1)
-    got = np.asarray(words).view(np.uint8)[: nbytes * k]
-    np.testing.assert_array_equal(got, exp_lin)
     np.testing.assert_array_equal(
-        np.asarray(counts), exp_bits.sum(axis=1).astype(np.uint32)
+        np.asarray(words).view(np.uint8)[: nbytes * k],
+        _linear_oracle(vals, keys, n),
     )
 
 
-@pytest.mark.parametrize("k", [24, 32])
-def test_fused_static_linear_large_matches_oracle(k):
-    # hierarchical fused static export for arbitrary concrete keys:
-    # per-8-group static-DAG kernels + g=2 stream interleave, caller
-    # order preserved (the linear byte contract is order-sensitive)
-    from shared_simd_scan_tpu.ops import scan as scan_ops
-
-    rng = np.random.default_rng(35)
-    width, n = 9, 21_000
-    vals = rng.integers(0, 512, n, dtype=np.uint32)
-    dev = layout.to_device(layout.pack(vals, width))
-    keys = np.unique(rng.integers(0, 512, 4 * k, dtype=np.uint32))[:k]
-    rng.shuffle(keys)  # caller order != sorted
-    words, counts = scan_ops.static_scan_linear_words_large(
-        dev.tiles, keys, width, n, interpret=True
-    )
-    nbytes = (n + 7) // 8
-    exp_bits = np.zeros((k, nbytes * 8), np.uint8)
-    for j in range(k):
-        exp_bits[j, :n] = vals == keys[j]
-    exp_lin = np.packbits(
-        exp_bits.reshape(k, nbytes, 8), axis=-1, bitorder="little"
-    ).reshape(k, nbytes).T.reshape(-1)
-    np.testing.assert_array_equal(
-        np.asarray(words).view(np.uint8)[: nbytes * k], exp_lin
-    )
-    np.testing.assert_array_equal(
-        np.asarray(counts), exp_bits.sum(axis=1).astype(np.uint32)
-    )
-
-
-@pytest.mark.parametrize("k", [8, 12])
-def test_fused_traced_linear_matches_oracle(k):
-    # fused TRACED-keys scan+interleave: one compiled program, any
-    # runtime key values — words + counts vs the numpy oracle, n tail
-    # and out-of-domain keys included
-    from shared_simd_scan_tpu.ops import scan as scan_ops
-
-    rng = np.random.default_rng(39)
-    width, n = 9, 33_000 - 5
-    vals = rng.integers(0, 512, n, dtype=np.uint32)
-    dev = layout.to_device(layout.pack(vals, width))
-    keys = ((np.arange(k, dtype=np.uint32) * 73 + 19) % 512)
-    keys[0] = 700  # out-of-domain
-    words, counts = jax.jit(
-        lambda kv: scan_ops.bitsliced_scan_linear_words_tiles(
-            dev.tiles, kv, width, n, interpret=True
-        )
-    )(jnp.asarray(keys))
-    nbytes = (n + 7) // 8
-    eb = np.zeros((k, nbytes * 8), np.uint8)
-    for j, key in enumerate(keys):
-        if key < 512:
-            eb[j, :n] = vals == key
-    exp = np.packbits(
-        eb.reshape(k, nbytes, 8), axis=-1, bitorder="little"
-    ).reshape(k, nbytes).T.reshape(-1)
-    np.testing.assert_array_equal(
-        np.asarray(words).view(np.uint8)[: nbytes * k], exp
-    )
-    np.testing.assert_array_equal(
-        np.asarray(counts), eb.sum(axis=1).astype(np.uint32)
-    )
-
-
-def test_linear_words_device_traced_dispatch():
-    # the words dispatcher inside a jit (keys traced) must route through
-    # the fused traced tier at k=8 and the hierarchical one at k=24,
-    # matching the oracle bytes
-    from shared_simd_scan_tpu.ops import scan as scan_ops
-
-    rng = np.random.default_rng(43)
-    n = 9_000
-    vals = rng.integers(0, 512, n, dtype=np.uint32)
-    dev = layout.to_device(layout.pack(vals, 9))
-    nbytes = (n + 7) // 8
-    for k in (8, 24):
-        keys = ((np.arange(k, dtype=np.uint32) * 59 + 3) % 512)
-        got = np.asarray(jax.jit(
-            lambda kv: scan_ops.shared_scan_linear_words_device(
-                dev, kv, interpret=True
-            )
-        )(jnp.asarray(keys)))
-        eb = np.zeros((k, nbytes * 8), np.uint8)
-        for j, key in enumerate(keys):
-            eb[j, :n] = vals == key
-        exp = np.packbits(
-            eb.reshape(k, nbytes, 8), axis=-1, bitorder="little"
-        ).reshape(k, nbytes).T.reshape(-1)
-        np.testing.assert_array_equal(
-            got.view(np.uint8)[: nbytes * k], exp, err_msg=f"{k=}"
-        )
+def test_linear_words_needs_k_multiple_of_4():
+    dev = layout.pack_device(_rand_column(9, 1000, seed=1), 9)
+    with pytest.raises(ValueError, match="k % 4"):
+        scan_ops.shared_scan_linear_words_device(dev, np.arange(6))
 
 
 def test_linear_words_dispatch_no_tracer_demotion(monkeypatch):
     # concrete numpy keys closed over inside a jit must stay on the
-    # CONCRETE fused tiers (the round-2 jnp.asarray-before-Tracer-check
-    # demotion bug class): forcing the traced tier to raise proves the
-    # route
-    from shared_simd_scan_tpu.ops import scan as scan_ops
+    # CONCRETE tiers (the jnp.asarray-before-Tracer-check demotion bug
+    # class): forcing the traced tier to raise proves the route
+    import jax
 
     def _boom(*a, **k):
         raise AssertionError("concrete keys demoted to the traced tier")
 
-    monkeypatch.setattr(scan_ops, "bitsliced_scan_linear_words_tiles", _boom)
-    monkeypatch.setattr(scan_ops, "bitsliced_scan_linear_words_large", _boom)
+    monkeypatch.setattr(scan_ops, "shared_scan_bitsliced_tiles", _boom)
     rng = np.random.default_rng(51)
     n = 9_000
     vals = rng.integers(0, 512, n, dtype=np.uint32)
@@ -691,196 +604,19 @@ def test_linear_words_dispatch_no_tracer_demotion(monkeypatch):
     keys = np.array([9, 300, 44, 501, 2, 60, 120, 7], np.uint32)  # spread
     out = jax.jit(
         lambda t: scan_ops.shared_scan_linear_words_device(
-            layout.DeviceColumn(width=9, n=n, tiles=t), keys, interpret=True
+            layout.DeviceColumn(width=9, n=n, tiles=t), keys
         )
     )(dev.tiles)
     assert out.shape[0] == ((n + 7) // 8) * 8 // 4
-
-
-def test_linear_uint8_device_fused_concrete_spread():
-    # the uint8 linear dispatcher must route concrete spread keys
-    # through the fused words path and keep the byte contract
-    from shared_simd_scan_tpu.ops import scan as scan_ops
-
-    rng = np.random.default_rng(37)
-    n = 9_000
-    vals = rng.integers(0, 512, n, dtype=np.uint32)
-    dev = layout.to_device(layout.pack(vals, 9))
-    keys = np.array([3, 471, 12, 200, 77, 508, 130, 9], np.uint32)
-    got = np.asarray(
-        scan_ops.shared_scan_linear_device(dev, keys, interpret=True)
+    np.testing.assert_array_equal(
+        np.asarray(out).view(np.uint8), _linear_oracle(vals, keys, n)
     )
-    nbytes = (n + 7) // 8
-    eb = np.zeros((8, nbytes * 8), np.uint8)
-    for j, key in enumerate(keys):
-        eb[j, :n] = vals == key
-    exp = np.packbits(
-        eb.reshape(8, nbytes, 8), axis=-1, bitorder="little"
-    ).reshape(8, nbytes).T.reshape(-1)
-    np.testing.assert_array_equal(got, exp)
-
-
-def test_linear_words_device_dispatches_fused_consecutive():
-    # concrete consecutive keys must produce the same words through the
-    # dispatcher (fused kernel) as through the two-kernel fallback path
-    from shared_simd_scan_tpu.ops import scan as scan_ops
-    from shared_simd_scan_tpu.ops import linear as linear_ops
-
-    rng = np.random.default_rng(17)
-    n = 9_000
-    vals = rng.integers(0, 512, n, dtype=np.uint32)
-    dev = layout.to_device(layout.pack(vals, 9))
-    keys = np.arange(37, 45, dtype=np.uint32)
-    got = np.asarray(
-        scan_ops.shared_scan_linear_words_device(dev, keys, interpret=True)
-    )
-    bits, _ = scan_ops.shared_scan_device(dev, keys, interpret=True)
-    nbytes = (n + 7) // 8
-    exp = np.asarray(
-        linear_ops.interleave_mxu_words(bits, nbytes * 8 // 4, interpret=True)
-    )
-    np.testing.assert_array_equal(got, exp)
-
-
-@pytest.mark.parametrize("m,g", [(4, 2), (3, 2), (8, 2), (4, 128)])
-def test_interleave_streams_matches_numpy(m, g):
-    # g-word round-robin stream interleave (the hierarchical level-2
-    # pass) vs a direct numpy reshape oracle, ragged lengths included
-    from shared_simd_scan_tpu.ops import linear as linear_ops
-
-    rng = np.random.default_rng(23)
-    M = 1000
-    streams = rng.integers(0, 2**32, size=(m, M), dtype=np.uint32)
-    nwords = m * M - 5
-    got = np.asarray(
-        linear_ops.interleave_streams_mxu_words(
-            jnp.asarray(streams), g, nwords, interpret=True
-        )
-    )
-    Mp = -(-M // g) * g
-    sp = np.zeros((m, Mp), np.uint32)
-    sp[:, :M] = streams
-    exp = sp.reshape(m, Mp // g, g).transpose(1, 0, 2).reshape(-1)[:nwords]
-    np.testing.assert_array_equal(got, exp)
-
-
-@pytest.mark.parametrize("k", [20, 24, 28, 32, 64])
-def test_interleave_mxu_large_matches_byte_oracle(k):
-    # hierarchical large-k interleave: byte-level groups of 8 (g=2) or
-    # 4 (g=1, the k = 4m odd-m column) must reproduce the exact linear
-    # byte contract
-    from shared_simd_scan_tpu.ops import linear as linear_ops
-
-    rng = np.random.default_rng(29)
-    w = 700
-    bits = rng.integers(0, 2**32, size=(k, w), dtype=np.uint32)
-    nbytes = w * 4 - 3
-    words = np.asarray(
-        linear_ops.interleave_mxu_words_large(
-            jnp.asarray(bits), nbytes, interpret=True
-        )
-    )
-    exp = bits.view(np.uint8).reshape(k, -1)[:, :nbytes].T.reshape(-1)
-    got = words.view(np.uint8)[: nbytes * k]
-    np.testing.assert_array_equal(got, exp)
-
-
-def test_linear_words_device_large_k_dispatch():
-    # the words dispatcher must route k=32 concrete keys through the
-    # hierarchical tier and agree with the stack fallback's bytes
-    from shared_simd_scan_tpu.ops import scan as scan_ops
-    from shared_simd_scan_tpu.ops import linear as linear_ops
-
-    rng = np.random.default_rng(41)
-    n = 9_000
-    vals = rng.integers(0, 512, n, dtype=np.uint32)
-    dev = layout.to_device(layout.pack(vals, 9))
-    keys = ((np.arange(32, dtype=np.uint32) * 37 + 5) % 512)
-    got = np.asarray(
-        scan_ops.shared_scan_linear_words_device(dev, keys, interpret=True)
-    )
-    bits, _ = scan_ops.shared_scan_device(dev, keys, interpret=True)
-    nbytes = (n + 7) // 8
-    exp = np.asarray(linear_ops.interleave_xla_stack(bits, nbytes))
-    np.testing.assert_array_equal(got.view(np.uint8), exp)
-
-
-def test_fuzz_linear_words_device():
-    # words-export dispatcher fuzz: every tier boundary (fused k<=16,
-    # hierarchical 24..128 incl. the fused-hierarchical consecutive
-    # route, stack fallback k=20), ragged n, widths
-    from shared_simd_scan_tpu.ops import scan as scan_ops
-
-    rng = np.random.default_rng(57)
-    for k, width, consec in (
-        (4, 7, True), (8, 9, False), (12, 11, True), (16, 9, False),
-        (24, 9, True), (24, 9, False), (32, 13, True), (20, 9, False),
-        (20, 9, True), (28, 9, False),
-    ):
-        n = int(rng.integers(5_000, 30_000))
-        dom = 1 << width
-        vals = rng.integers(0, dom, n, dtype=np.uint32)
-        dev = layout.to_device(layout.pack(vals, width))
-        if consec:
-            lo = int(rng.integers(0, dom - k))
-            keys = np.arange(lo, lo + k, dtype=np.uint32)
-        else:
-            keys = np.unique(
-                rng.integers(0, dom, 4 * k, dtype=np.uint32)
-            )[:k]
-            assert len(keys) == k
-        words = np.asarray(
-            scan_ops.shared_scan_linear_words_device(dev, keys, interpret=True)
-        )
-        nbytes = (n + 7) // 8
-        eb = np.zeros((k, nbytes * 8), np.uint8)
-        for j, key in enumerate(keys):
-            eb[j, :n] = vals == key
-        exp = np.packbits(
-            eb.reshape(k, nbytes, 8), axis=-1, bitorder="little"
-        ).reshape(k, nbytes).T.reshape(-1)
-        np.testing.assert_array_equal(
-            words.view(np.uint8)[: nbytes * k], exp,
-            err_msg=f"{k=} {width=} {consec=} {n=}",
-        )
-
-
-def test_interleave_xla_mxu_matches_byte_oracle():
-    # the XLA-native matmul twin of the Pallas MXU relayout (diagnostic
-    # + alternate dispatch target) must be bit-exact on ragged shapes
-    from shared_simd_scan_tpu.ops import linear as linear_ops
-
-    rng = np.random.default_rng(13)
-    for k, w in ((4, 257), (8, 1024), (12, 77), (8, 9_000)):
-        bits = rng.integers(0, 2**32, size=(k, w), dtype=np.uint32)
-        nbytes = w * 4 - 3
-        got = np.asarray(
-            linear_ops.interleave_xla_mxu(jnp.asarray(bits), nbytes)
-        )
-        exp = bits.view(np.uint8).reshape(k, -1)[:, :nbytes].T.reshape(-1)
-        np.testing.assert_array_equal(got, exp)
-
-
-def test_interleave_device_dispatch_matches_fallback():
-    from shared_simd_scan_tpu.ops import linear as linear_ops
-
-    rng = np.random.default_rng(10)
-    for k in (3, 6, 8, 20):  # non-multiple-of-4 and >16 take the XLA path
-        bits = rng.integers(0, 2**32, size=(k, 300), dtype=np.uint32)
-        nbytes = 300 * 4 - 1
-        got = np.asarray(
-            linear_ops.interleave_device(jnp.asarray(bits), nbytes, interpret=True)
-        )
-        exp = bits.view(np.uint8).reshape(k, -1)[:, :nbytes].T.reshape(-1)
-        np.testing.assert_array_equal(got, exp)
 
 
 def test_static_group_sizes_branch_cap():
-    # every per-pallas_call key group must chunk into <= 8 predicated
-    # branches under _static_krows (Mosaic collapses past 8 — measured
-    # 55 vs 575 GB/s).  Regression: a flat 8*32 group gave k=100 thirteen
-    # branches.  Groups past the first must also be exact (no zero-pad
-    # rows except possibly in the final group).
+    # the static tier's cost model prices key groups of <= 8 chunks of
+    # _static_krows rows; groups past the first must be exact (no zero
+    # rows except possibly in the final group)
     for k in range(1, 2049):
         sizes = scan_ops._static_group_sizes(k)
         assert sum(sizes) == k

@@ -31,7 +31,7 @@ def test_member_consecutive_uses_range_tier():
     vals, col = _col(width, n, seed=1)
     dev = layout.to_device(col)
     keys = np.arange(100, 180, dtype=np.uint32)  # k=80 consecutive
-    bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    bits, count = member_ops.member_scan_device(dev, keys)
     _check(vals, dev, keys, bits, count)
 
 
@@ -45,7 +45,7 @@ def test_member_window_tier_clustered(width):
     bases = np.array([0, 64, 128], np.uint32) % dom
     keys = np.concatenate([b + np.arange(0, 16, 2, dtype=np.uint32) for b in bases])
     keys = (keys % dom).astype(np.uint32)
-    bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    bits, count = member_ops.member_scan_device(dev, keys)
     _check(vals, dev, keys, bits, count)
 
 
@@ -55,12 +55,12 @@ def test_member_compare_tier_spread_keys():
     vals, col = _col(width, n, seed=3)
     dev = layout.to_device(col)
     keys = (np.arange(7, dtype=np.uint32) * 131 + 5) % (1 << width)
-    bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    bits, count = member_ops.member_scan_device(dev, keys)
     _check(vals, dev, keys, bits, count)
 
 
 def test_member_chunked_compare_large_spread():
-    # > _MAX_COMPARE_KEYS spread keys -> chunked compare with OR outside
+    # 100 spread keys at width 12: one OR over every key in one body
     width, n = 12, 15_000
     vals, col = _col(width, n, seed=4)
     dev = layout.to_device(col)
@@ -68,12 +68,12 @@ def test_member_chunked_compare_large_spread():
         np.uint32
     )
     # keys are spread (few repeats per 32-window) so the window tier loses
-    bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    bits, count = member_ops.member_scan_device(dev, keys)
     _check(vals, dev, keys, bits, count)
 
 
 def test_member_chunked_window_many_clusters():
-    # > _MAX_WINDOWS windows, clustered -> chunked window tier
+    # 40 clustered windows: the window tier over all of them in one body
     width, n = 16, 12_000
     vals, col = _col(width, n, seed=5)
     dev = layout.to_device(col)
@@ -82,16 +82,15 @@ def test_member_chunked_window_many_clusters():
         [b + np.arange(8, dtype=np.uint32) for b in bases]
     ).astype(np.uint32)
     assert len(member_ops.member_window_plan(keys)[0]) > 32
-    bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    bits, count = member_ops.member_scan_device(dev, keys)
     _check(vals, dev, keys, bits, count)
 
 
 @pytest.mark.parametrize("width,k", [(9, 8), (9, 32), (13, 100)])
 def test_member_bitsliced_tier_traced(width, k):
-    # TRACED spread keys past the cost rule -> dynamic bit-sliced tier
-    # (single chunk at k <= 32, OR'd partial rows above; width 13 prices
-    # out the domain bitmap so k=100 exercises the multi-chunk path).
-    # Concrete keys now always prefer the static OR-tree.
+    # TRACED spread keys past the cost rule -> bit-sliced tier (width 13
+    # prices out the domain bitmap, so k=100 stays bit-sliced).  Concrete
+    # keys always prefer the static OR-tree.
     n = 25_000
     vals, col = _col(width, n, seed=40 + k)
     dev = layout.to_device(col)
@@ -102,7 +101,7 @@ def test_member_bitsliced_tier_traced(width, k):
     @jax.jit
     def run(tiles, ks):
         return member_ops.member_scan_tiles(
-            tiles, ks, width, dev.n, interpret=True
+            tiles, ks, width, dev.n
         )
 
     bits, count = run(dev.tiles, jnp.asarray(keys))
@@ -123,7 +122,7 @@ def test_member_domain_tier_traced(width, k):
     @jax.jit
     def run(tiles, ks):
         return member_ops.member_scan_tiles(
-            tiles, ks, width, dev.n, interpret=True
+            tiles, ks, width, dev.n
         )
 
     bits, count = run(dev.tiles, jnp.asarray(keys))
@@ -141,7 +140,7 @@ def test_member_ortree_tier_spread(width, k):
         np.uint32
     )
     assert member_ops.member_dispatch_tier(keys, width) == "ortree"
-    bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    bits, count = member_ops.member_scan_device(dev, keys)
     _check(vals, dev, keys, bits, count)
 
 
@@ -153,12 +152,12 @@ def test_member_ortree_full_domain_and_out_of_domain():
     # OR-tree root is None -> all-match row, tail still masked
     keys = np.arange(1 << width, dtype=np.uint32)
     keys = np.concatenate([keys[1::2], keys[0::2]])
-    bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    bits, count = member_ops.member_scan_device(dev, keys)
     _check(vals, dev, keys, bits, count)
     assert int(count) == n
     # out-of-domain keys are dropped before the DAG build
     keys = np.array([5, 1 << width, (1 << width) + 7, 200], np.uint32)
-    bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    bits, count = member_ops.member_scan_device(dev, keys)
     _check(vals, dev, np.array([5, 200], np.uint32), bits, count)
 
 
@@ -169,7 +168,7 @@ def test_member_ortree_zero_key_padding():
     dev = layout.to_device(col)
     keys = np.array([0, 77, 200, 401, 13, 263, 97, 310], np.uint32)
     assert member_ops.member_dispatch_tier(keys, width) == "ortree"
-    bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    bits, count = member_ops.member_scan_device(dev, keys)
     _check(vals, dev, keys, bits, count)
 
 
@@ -186,7 +185,7 @@ def test_member_domain_traced_keys():
     @jax.jit
     def run(tiles, ks):
         return member_ops.member_scan_tiles(
-            tiles, ks, width, dev.n, interpret=True
+            tiles, ks, width, dev.n
         )
 
     bits, count = run(dev.tiles, jnp.asarray(keys))
@@ -211,15 +210,14 @@ def test_domain_table_bits_and_duplicates():
 
 
 def test_member_bitsliced_direct_out_of_domain():
-    # the bit-sliced member kernel itself: out-of-domain keys (incl. the
-    # sentinel padding) match nothing, key 0 ignores padding blocks
+    # the bit-sliced member tier itself: out-of-domain keys (incl. the
+    # all-ones sentinel) match nothing, key 0 ignores padding blocks
     width, n = 9, 100
     vals, col = _col(width, n, seed=8)
     dev = layout.to_device(col)
     keys = np.array([0, 512, 700, 0xFFFFFFFF, int(vals[0])], np.uint32)
-    keys2 = jnp.asarray(keys).reshape(-1, 1)
     bits, count = member_ops._member_bitsliced_tiles(
-        dev.tiles, keys2, width, n, None, True, keys.size, 0
+        dev.tiles, jnp.asarray(keys), 0, width=width, n=n
     )
     expect = np.isin(vals, keys[keys < 512])
     assert int(count) == int(expect.sum())
@@ -243,7 +241,7 @@ def test_member_bitsliced_traced_keys():
 
     @jax.jit
     def run(ks):
-        return member_ops.member_scan_device(dev, ks, interpret=True)
+        return member_ops.member_scan_device(dev, ks)
 
     bits, count = run(jnp.asarray(keys))
     _check(vals, dev, keys, bits, count)
@@ -257,7 +255,7 @@ def test_member_traced_keys_fall_back_to_compare():
 
     @jax.jit
     def run(ks):
-        return member_ops.member_scan_device(dev, ks, interpret=True)
+        return member_ops.member_scan_device(dev, ks)
 
     bits, count = run(jnp.asarray(keys))
     _check(vals, dev, keys, bits, count)
@@ -268,16 +266,16 @@ def test_member_duplicate_keys_count_once():
     vals, col = _col(width, n, seed=7)
     dev = layout.to_device(col)
     keys = np.array([5, 5, 5, 300, 300], np.uint32)
-    bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    bits, count = member_ops.member_scan_device(dev, keys)
     expect = np.isin(vals, np.unique(keys))
     assert int(count) == int(expect.sum())
-    # duplicates across chunk boundaries of the chunked compare tier
+    # many duplicates in one large key set
     keys2 = np.concatenate(
         [np.full(40, 7, np.uint32), np.full(40, 450, np.uint32)]
     )
     rng = np.random.default_rng(8)
     keys2 = np.concatenate([keys2, rng.integers(0, 512, 30).astype(np.uint32)])
-    bits2, count2 = member_ops.member_scan_device(dev, keys2, interpret=True)
+    bits2, count2 = member_ops.member_scan_device(dev, keys2)
     expect2 = np.isin(vals, np.unique(keys2))
     assert int(count2) == int(expect2.sum())
     assert bitvector.to_bytes(bits2, n) == np.packbits(
@@ -291,7 +289,7 @@ def test_member_key_zero_ignores_padding():
     vals, col = _col(width, n, seed=9)
     dev = layout.to_device(col)
     keys = np.array([0, 17], np.uint32)
-    bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    bits, count = member_ops.member_scan_device(dev, keys)
     _check(vals, dev, keys, bits, count)
     # bits at i >= n are zero
     mask = np.frombuffer(bitvector.to_bytes(bits, n), np.uint8)
@@ -319,7 +317,7 @@ def test_member_vs_oracle_fuzz():
         dev = layout.to_device(col)
         k = int(rng.integers(1, 60))
         keys = rng.integers(0, 1 << width, k).astype(np.uint32)
-        bits, count = member_ops.member_scan_device(dev, keys, interpret=True)
+        bits, count = member_ops.member_scan_device(dev, keys)
         obits, ocount = oracle.member_scan(col, keys)
         assert int(count) == int(ocount), (width, n, k)
         np.testing.assert_array_equal(np.asarray(bits), np.asarray(obits))
@@ -329,7 +327,6 @@ def test_member_dispatch_stays_static_inside_jit():
     # regression: jnp.asarray inside a jit trace stages numpy constants
     # into Tracers; the dispatcher must inspect the RAW keys argument or
     # concrete key sets silently demote to the traced compare tier
-    # (measured 2.4x slower on TPU for the interval shape)
     width, n = 9, 5_000
     vals, col = _col(width, n, seed=20)
     dev = layout.to_device(col)
@@ -337,22 +334,22 @@ def test_member_dispatch_stays_static_inside_jit():
 
     def f_member(tiles):
         return member_ops.member_scan_tiles(
-            tiles, keys, width, n, interpret=True
+            tiles, keys, width, n
         )[1]
 
     s = str(jax.make_jaxpr(f_member)(dev.tiles))
     assert "_member_compare_tiles" not in s  # range tier, not compare
-    assert "range_scan_tiles" in s
+    assert "_range_impl" in s
 
     from shared_simd_scan_tpu.layout import DeviceColumn
     from shared_simd_scan_tpu.ops import scan as scan_ops
 
     def f_shared(tiles):
         d = DeviceColumn(width=width, n=n, tiles=tiles)
-        return scan_ops.shared_scan_device(d, keys, interpret=True)[1]
+        return scan_ops.shared_scan_device(d, keys)[1]
 
     s2 = str(jax.make_jaxpr(f_shared)(dev.tiles))
-    assert "interval_scan_tiles" in s2  # interval tier, not general compare
+    assert "_interval_impl" in s2  # interval tier, not general compare
 
 
 def test_member_window_plan():
@@ -378,7 +375,7 @@ def test_sharded_member_scan_matches_single_chip():
         ((np.arange(64, dtype=np.uint32) * 37 + 11) % 512),  # ortree tier
     ):
         bits_s, count_s = dist.sharded_member_scan(
-            sdev, keys, mesh, interpret=True
+            sdev, keys, mesh
         )
         flat = np.asarray(bits_s).reshape(-1)[: layout.bitvector_words(n)]
         expect = np.isin(vals, keys)
@@ -390,7 +387,7 @@ def test_sharded_member_scan_matches_single_chip():
 
 def test_ortree_liveness_cap_prices_out_big_dags():
     # a wide-domain spread set whose factored DAG keeps > _ORTREE_MAX_LIVE
-    # vectors live must be priced out of the OR-tree tier (VMEM budget),
+    # words live must be priced out of the OR-tree tier (dispatch cap),
     # landing on a flat-cost tier instead — and still verify
     width = 31
     rng = np.random.default_rng(5)
@@ -409,5 +406,5 @@ def test_ortree_liveness_cap_prices_out_big_dags():
     vals = rng.integers(0, 1 << width, size=n, dtype=np.uint32)
     vals[:50] = keys[:50]  # guarantee hits
     dev = layout.pack_device(vals, width)
-    _, count = member_ops.member_scan_device(dev, keys, interpret=True)
+    _, count = member_ops.member_scan_device(dev, keys)
     assert int(count) == int(np.isin(vals, keys).sum())

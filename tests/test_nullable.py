@@ -30,7 +30,7 @@ def _col(width, n, null_frac, seed):
 
 def test_leaf_excludes_nulls():
     vals, nulls, nc = _col(9, 20_000, 0.2, seed=1)
-    bits, count = nullable.evaluate(q.Eq(nc, 0), interpret=True)
+    bits, count = nullable.evaluate(q.Eq(nc, 0))
     expect = (vals == 0) & ~nulls  # stored 0 at null slots must NOT match
     assert int(count) == int(expect.sum())
     np.testing.assert_array_equal(
@@ -41,7 +41,7 @@ def test_leaf_excludes_nulls():
 def test_not_is_kleene():
     vals, nulls, nc = _col(9, 15_000, 0.15, seed=2)
     # SQL: NOT(v = 7) excludes NULL rows too
-    bits, count = nullable.evaluate(q.Not(q.Eq(nc, 7)), interpret=True)
+    bits, count = nullable.evaluate(q.Not(q.Eq(nc, 7)))
     expect = (vals != 7) & ~nulls
     assert int(count) == int(expect.sum())
     np.testing.assert_array_equal(
@@ -55,7 +55,7 @@ def test_or_null_true_is_true():
     av, an, a = _col(9, n, 0.3, seed=3)
     bv, bn, b = _col(9, n, 0.0, seed=4)
     bits, count = nullable.evaluate(
-        q.Or(q.Eq(a, 5), q.Range(b, 0, 256)), interpret=True
+        q.Or(q.Eq(a, 5), q.Range(b, 0, 256))
     )
     la = _tri_leaf(av == 5, an)
     lb = _tri_leaf(bv < 256, bn)
@@ -79,7 +79,7 @@ def test_nested_kleene_fuzz():
     lb = _tri_leaf((bv >= 10) & (bv < 50), bn)
     lr = _tri_leaf(av < 400, an)
     expect = _tri_and(-_tri_or(la, lb), lr) == T
-    bits, count = nullable.evaluate(expr, interpret=True)
+    bits, count = nullable.evaluate(expr)
     assert int(count) == int(expect.sum())
     np.testing.assert_array_equal(
         np.asarray(bitvector.to_bool(bits, n)), expect
@@ -92,7 +92,7 @@ def test_mixed_with_plain_columns_keeps_fusion_semantics():
     pv = np.random.default_rng(9).integers(0, 512, n, dtype=np.uint32)
     p = layout.to_device(layout.pack(pv, 9))
     bits, count = nullable.evaluate(
-        q.And(q.Range(p, 100, 300), q.Not(q.Eq(a, 2))), interpret=True
+        q.And(q.Range(p, 100, 300), q.Not(q.Eq(a, 2)))
     )
     expect = (pv >= 100) & (pv < 300) & (av != 2) & ~an
     assert int(count) == int(expect.sum())
@@ -118,9 +118,9 @@ def test_mixed_and_groups_pure_siblings_into_one_fused_pass(monkeypatch):
     calls = []
     real = nullable.q.evaluate
 
-    def spy(expr, interpret=False):
+    def spy(expr):
         calls.append(expr)
-        return real(expr, interpret=interpret)
+        return real(expr)
 
     monkeypatch.setattr(nullable.q, "evaluate", spy)
     bits, count = nullable.evaluate(
@@ -129,7 +129,6 @@ def test_mixed_and_groups_pure_siblings_into_one_fused_pass(monkeypatch):
             nullable.q.Range(p2, 10, 90),
             nullable.q.Not(nullable.q.Eq(a, 2)),
         ),
-        interpret=True,
     )
     expect = (
         (p1v >= 100) & (p1v < 300) & (p2v >= 10) & (p2v < 90)

@@ -21,7 +21,7 @@ def table():
 
 
 def _check(expr, expect, n):
-    bits, count = q.evaluate(expr, interpret=True)
+    bits, count = q.evaluate(expr)
     assert int(count) == int(expect.sum())
     np.testing.assert_array_equal(
         np.asarray(bitvector.to_bool(bits, n)), expect
@@ -45,7 +45,7 @@ def test_same_column_ranges_intersect(table):
     _check(expr, (av >= 200) & (av < 300), n)
     # statically empty intersection -> all zeros without a kernel pass
     bits, count = q.evaluate(
-        q.And(q.Range(a, 50, 100), q.Range(a, 300, 400)), interpret=True
+        q.And(q.Range(a, 50, 100), q.Range(a, 300, 400))
     )
     assert int(count) == 0
 
@@ -62,7 +62,7 @@ def test_in_or_not_composition(table):
 
 def test_nested_not_tail_invariant(table):
     n, (av, a), _, _ = table
-    bits, count = q.evaluate(q.Not(q.Eq(a, 0)), interpret=True)
+    bits, count = q.evaluate(q.Not(q.Eq(a, 0)))
     assert int(count) == int((av != 0).sum())
     if n % 32:
         assert int(np.asarray(bits)[-1] >> (n % 32)) == 0
@@ -98,13 +98,13 @@ def test_mismatched_n_raises():
     _, a = _col(9, 1_000, 20)
     _, b = _col(9, 2_000, 21)
     with pytest.raises(ValueError, match="share n"):
-        q.evaluate(q.And(q.Eq(a, 1), q.Eq(b, 2)), interpret=True)
+        q.evaluate(q.And(q.Eq(a, 1), q.Eq(b, 2)))
 
 
 def test_empty_in_matches_nothing(table):
     n, (av, a), _, _ = table
     bits, count = q.evaluate(
-        q.Or(q.In(a, []), q.Eq(a, 3)), interpret=True
+        q.Or(q.In(a, []), q.Eq(a, 3))
     )
     assert int(count) == int((av == 3).sum())
 
@@ -122,7 +122,7 @@ def test_evaluate_sharded_matches_numpy():
         q.Range(sa, 50, 400),
         q.Or(q.In(sb, [7, 99, 1500]), q.Not(q.Range(sb, 0, 1024))),
     )
-    bits, count = q.evaluate_sharded(expr, mesh, interpret=True)
+    bits, count = q.evaluate_sharded(expr, mesh)
     expect = ((av >= 50) & (av < 400)) & (
         np.isin(bv, [7, 99, 1500]) | ~(bv < 1024)
     )
@@ -139,7 +139,7 @@ def test_evaluate_sharded_not_tail_stays_zero():
     n = 8 * 32 * 128 * 8 + 5
     av, a = _col(9, n, 32)
     sa = dist.shard_column(a, mesh)
-    bits, count = q.evaluate_sharded(q.Not(q.Eq(sa, 0)), mesh, interpret=True)
+    bits, count = q.evaluate_sharded(q.Not(q.Eq(sa, 0)), mesh)
     assert int(count) == int((av != 0).sum())
     canon = np.asarray(bits_to_canonical(bits, n))
     if n % 32:
@@ -188,7 +188,7 @@ def test_query_fuzz_random_trees():
 
     for trial in range(12):
         expr, expect = tree(3)
-        bits, count = q.evaluate(expr, interpret=True)
+        bits, count = q.evaluate(expr)
         assert int(count) == int(expect.sum()), trial
         np.testing.assert_array_equal(
             np.asarray(bitvector.to_bool(bits, n)), expect, err_msg=str(trial)
@@ -232,7 +232,7 @@ def test_sharded_or_of_ranges_fuses():
     av, a = _col(9, n, 33)
     sa = dist.shard_column(a, mesh)
     expr = q.Or(q.Range(sa, 5, 30), q.Range(sa, 200, 260), q.Eq(sa, 400))
-    bits, count = q.evaluate_sharded(expr, mesh, interpret=True)
+    bits, count = q.evaluate_sharded(expr, mesh)
     expect = (
         ((av >= 5) & (av < 30))
         | ((av >= 200) & (av < 260))
@@ -264,7 +264,7 @@ def test_explain_names_tiers(table):
 def test_or_merges_in_and_eq_on_same_column(table):
     n, (av, a), _, (cv, c) = table
     expr = q.Or(q.In(c, [5, 9, 80]), q.Eq(c, 100), q.Eq(a, 3))
-    bits, count = q.evaluate(expr, interpret=True)
+    bits, count = q.evaluate(expr)
     expect = np.isin(cv, [5, 9, 80, 100]) | (av == 3)
     assert int(count) == int(expect.sum())
     np.testing.assert_array_equal(

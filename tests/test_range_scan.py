@@ -18,7 +18,7 @@ def test_interval_scan_matches_shared_scan(k):
     vals, col = _col(width, n, seed=k)
     dev = layout.to_device(col)
     lo = 100
-    bits, counts = scan_ops.interval_scan_device(dev, lo, k, interpret=True)
+    bits, counts = scan_ops.interval_scan_device(dev, lo, k)
     keys = np.arange(lo, lo + k, dtype=np.uint32)
     obits, ocounts = oracle.shared_scan(col, keys)
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
@@ -31,7 +31,7 @@ def test_interval_scan_wraparound_guard():
     vals, col = _col(width, n, seed=77)
     dev = layout.to_device(col)
     lo = (1 << width) - 3  # only keys 509,510,511 are in-domain
-    bits, counts = scan_ops.interval_scan_device(dev, lo, k, interpret=True)
+    bits, counts = scan_ops.interval_scan_device(dev, lo, k)
     for j in range(k):
         assert int(counts[j]) == int((vals == lo + j).sum())
 
@@ -44,7 +44,7 @@ def test_range_scan_parity_vs_numpy(k):
     rng = np.random.default_rng(k)
     lows = rng.integers(0, 1 << width, k).astype(np.uint32)
     highs = (lows + rng.integers(0, 200, k)).astype(np.uint32)
-    bits, counts = scan_ops.range_scan_device(dev, lows, highs, interpret=True)
+    bits, counts = scan_ops.range_scan_device(dev, lows, highs)
     for j in range(k):
         expect = (vals >= lows[j]) & (vals < highs[j])
         assert int(counts[j]) == int(expect.sum()), j
@@ -59,7 +59,7 @@ def test_range_scan_empty_and_full_ranges():
     dev = layout.to_device(col)
     lows = np.array([0, 7, 500], np.uint32)
     highs = np.array([512, 7, 2], np.uint32)  # full, empty, inverted(empty)
-    bits, counts = scan_ops.range_scan_device(dev, lows, highs, interpret=True)
+    bits, counts = scan_ops.range_scan_device(dev, lows, highs)
     assert int(counts[0]) == n
     assert int(counts[1]) == 0
     # inverted range hi < lo: hi-lo wraps huge -> matches v >= lo (documented
@@ -68,60 +68,74 @@ def test_range_scan_empty_and_full_ranges():
     assert int(counts[2]) == int(expect2.sum())
 
 
-@pytest.mark.parametrize("k", [36, 48, 64, 100])  # krows 8/16/32/8 strides
+@pytest.mark.parametrize("k", [36, 48, 64, 100])
 def test_interval_scan_large_k_chunked(k):
-    width, n = 9, 6_000  # multi-chunk path (k > 32)
+    width, n = 9, 6_000  # several 32-key mask windows (k > 32)
     vals, col = _col(width, n, seed=13)
     dev = layout.to_device(col)
     lo = 50
-    bits, counts = scan_ops.interval_scan_device(dev, lo, k, interpret=True)
+    bits, counts = scan_ops.interval_scan_device(dev, lo, k)
     keys = np.arange(lo, lo + k, dtype=np.uint32)
     obits, ocounts = oracle.shared_scan(col, keys)
     np.testing.assert_array_equal(np.asarray(counts), np.asarray(ocounts))
     np.testing.assert_array_equal(np.asarray(bits), np.asarray(obits))
 
 
-@pytest.mark.parametrize("width,k", [(25, 8), (31, 32), (9, 512), (31, 1024)])
-def test_interval_default_tiles_fit_vmem_budget(width, k):
-    # the default tile choice must keep the kernel's working set within
-    # the documented VMEM budget (width-25 k-8 OOM'd before the cap)
-    from shared_simd_scan_tpu.ops.scan import default_interval_tb
-
-    tb = default_interval_tb(width, k)
-    krows = min(k, 32)
-    # independent accounting: double-buffered input + bits out, scratch
-    # and masks when chunked/multi-round, X vectors + transients
-    scratch = 32 if k > 32 else 0
-    masks = 32 if krows > 8 else 8
-    live = 512 * tb * (2 * width + 2 * krows + scratch + masks + 8)
-    assert live <= 13_000_000
-    assert tb % 8 == 0 and tb >= 8
+@pytest.mark.parametrize("width,k", [(25, 8), (31, 32), (9, 100), (31, 64)])
+def test_interval_scan_wide_columns(width, k):
+    # wide widths (straddling unpack schedule) at one- and multi-window k
+    n = 5_000
+    vals, col = _col(width, n, seed=width + k)
+    lo = int(vals[11]) - 3 if int(vals[11]) >= 3 else 0
+    vals[: 3 * k] = lo + np.arange(3 * k, dtype=np.uint32) % k  # hits
+    col = layout.pack(vals, width)
+    dev = layout.to_device(col)
+    _, counts = scan_ops.interval_scan_device(dev, lo, k)
+    expect = [int((vals == lo + j).sum()) for j in range(k)]
+    assert [int(c) for c in np.asarray(counts)] == expect
 
 
 def test_shift_saturation_canary_on_cpu():
-    # the gateless interval mask depends on shl saturating to 0 for
-    # amounts >= 32; the canary must confirm it on this backend (and be
-    # cached: second call hits the dict)
-    assert scan_ops.shift_saturates(interpret=True)
-    assert scan_ops.shift_saturates(interpret=True)
+    # the interval/windowed bodies rely on XLA's shift semantics: a
+    # logical shift left by 32 or more gives 0 (chip_smoke.py checks the
+    # same on the card)
+    import jax
+    import jax.numpy as jnp
+
+    amounts = jnp.asarray(
+        [32, 33, 63, 64, 255, 1 << 20, (1 << 32) - 32, (1 << 32) - 1], jnp.uint32)
+    out = jax.jit(lambda a: jnp.uint32(1) << a)(amounts)
+    assert not np.asarray(out).any()
+    np.testing.assert_array_equal(
+        np.asarray(jax.jit(lambda a: jnp.uint32(1) << a)(jnp.arange(32, dtype=jnp.uint32))),
+        (1 << np.arange(32, dtype=np.uint64)).astype(np.uint32),
+    )
 
 
 @pytest.mark.parametrize("k", [5, 8, 40])
 def test_interval_gated_fallback_matches_gateless(k):
-    # the gated mask variant (used when the canary fails) must be
-    # bit-identical to the gateless one
+    # the gated mask (the Triton driver's form: an oversized LLVM shift
+    # is poison) must be bit-identical to the gateless XLA form
+    import functools
+
+    import jax.numpy as jnp
+
+    from shared_simd_scan_tpu.ops import driver
+
     width, n = 9, 20_000
     vals, col = _col(width, n, seed=k + 3)
     dev = layout.to_device(col)
-    lo = 30
-    b_gl, c_gl = scan_ops._interval_scan_tiles_impl(
-        dev.tiles, lo, k, width, n, None, True, True, 0
-    )
-    b_gt, c_gt = scan_ops._interval_scan_tiles_impl(
-        dev.tiles, lo, k, width, n, None, True, False, 0
-    )
-    np.testing.assert_array_equal(np.asarray(b_gl), np.asarray(b_gt))
-    np.testing.assert_array_equal(np.asarray(c_gl), np.asarray(c_gt))
+    lo = jnp.asarray([30], jnp.uint32)
+    out = [
+        driver.scan_xla(
+            functools.partial(scan_ops._interval_rows, width=width, k=k,
+                              gateless=g),
+            dev.tiles, n, lo,
+        )
+        for g in (True, False)
+    ]
+    np.testing.assert_array_equal(np.asarray(out[0][0]), np.asarray(out[1][0]))
+    np.testing.assert_array_equal(np.asarray(out[0][1]), np.asarray(out[1][1]))
 
 
 def test_interval_counts_are_uint32():
@@ -130,9 +144,9 @@ def test_interval_counts_are_uint32():
     width, n, k = 9, 4_096, 8
     vals, col = _col(width, n, seed=1)
     dev = layout.to_device(col)
-    _, counts = scan_ops.interval_scan_device(dev, 0, k, interpret=True)
+    _, counts = scan_ops.interval_scan_device(dev, 0, k)
     assert np.asarray(counts).dtype == np.uint32
     _, counts2 = scan_ops.shared_scan_device(
-        dev, np.arange(k, dtype=np.uint32) * 3 % 512, interpret=True
+        dev, np.arange(k, dtype=np.uint32) * 3 % 512
     )
     assert np.asarray(counts2).dtype == np.uint32

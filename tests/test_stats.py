@@ -13,7 +13,7 @@ def _col(width, n, seed=0):
 
 def test_histogram_full_matches_bincount():
     vals, dev = _col(9, 30_000, seed=1)
-    counts = stats.histogram_full(dev, interpret=True)
+    counts = stats.histogram_full(dev)
     np.testing.assert_array_equal(
         counts, np.bincount(vals, minlength=512).astype(np.uint64)
     )
@@ -22,7 +22,7 @@ def test_histogram_full_matches_bincount():
 def test_histogram_full_multiwindow_width13():
     # 2^13 domain -> two 4096-value kernel windows
     vals, dev = _col(13, 50_000, seed=2)
-    counts = stats.histogram_full(dev, interpret=True)
+    counts = stats.histogram_full(dev)
     np.testing.assert_array_equal(
         counts, np.bincount(vals, minlength=1 << 13).astype(np.uint64)
     )
@@ -31,7 +31,7 @@ def test_histogram_full_multiwindow_width13():
 def test_quantiles_exact():
     vals, dev = _col(9, 20_000, seed=3)
     qs = [0.0, 0.25, 0.5, 0.9, 1.0]
-    got = stats.quantiles(dev, qs, interpret=True)
+    got = stats.quantiles(dev, qs)
     svals = np.sort(vals)
     for q, g in zip(qs, got):
         rank = max(1, int(np.ceil(q * vals.size)))
@@ -44,7 +44,7 @@ def test_topk_values():
     vals[:3000] = 7   # clear winner
     vals[3000:4500] = 99
     dev = layout.to_device(layout.pack(vals, 9))
-    top, counts = stats.topk_values(dev, 2, interpret=True)
+    top, counts = stats.topk_values(dev, 2)
     assert list(top) == [7, 99]
     exp = np.bincount(vals, minlength=512)
     assert list(counts) == [exp[7], exp[99]]
@@ -52,7 +52,7 @@ def test_topk_values():
 
 def test_describe():
     vals, dev = _col(9, 15_000, seed=5)
-    d = stats.describe(dev, interpret=True)
+    d = stats.describe(dev)
     assert d["n"] == vals.size
     assert d["min"] == int(vals.min())
     assert d["max"] == int(vals.max())
@@ -66,7 +66,7 @@ def test_width_guard():
     _, dev = _col(9, 100, seed=6)
     object.__setattr__(dev, "width", 31)
     with pytest.raises(ValueError, match="width 31"):
-        stats.histogram_full(dev, interpret=True)
+        stats.histogram_full(dev)
 
 
 def test_histogram_full_sharded_matches():
@@ -75,9 +75,9 @@ def test_histogram_full_sharded_matches():
     mesh = dist.make_mesh()
     vals, dev = _col(9, 8 * 32 * 128 * 8 + 7, seed=7)
     sdev = dist.shard_column(dev, mesh)
-    counts = stats.histogram_full(sdev, interpret=True, mesh=mesh)
+    counts = stats.histogram_full(sdev, mesh=mesh)
     np.testing.assert_array_equal(
         counts, np.bincount(vals, minlength=512).astype(np.uint64)
     )
-    d = stats.describe(sdev, interpret=True, mesh=mesh)
+    d = stats.describe(sdev, mesh=mesh)
     assert d["n"] == vals.size and d["min"] == int(vals.min())

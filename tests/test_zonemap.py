@@ -15,7 +15,7 @@ def _sorted_col(width, n, seed=0):
 
 def _check(vals, dev, zmap, lo, hi):
     bits, cnt = zonemap.pruned_range_scan(
-        dev, zmap, lo, hi, interpret=True
+        dev, zmap, lo, hi
     )
     mask = (vals >= lo) & (vals < hi)
     assert int(cnt) == int(mask.sum()), (lo, hi)
@@ -26,10 +26,10 @@ def _check(vals, dev, zmap, lo, hi):
 def test_zonemap_sorted_point_and_range():
     width, n = 9, 70_000
     vals, dev = _sorted_col(width, n, seed=1)
-    zmap = zonemap.build_zonemap(dev, zone_b1=8, interpret=True)
+    zmap = zonemap.build_zonemap(dev, zone_b1=8)
     # point queries incl. absent keys, plus ranges spanning zone edges
     for key in (0, 17, 100, 511):
-        bits, cnt = zonemap.pruned_eq_scan(dev, zmap, key, interpret=True)
+        bits, cnt = zonemap.pruned_eq_scan(dev, zmap, key)
         assert int(cnt) == int((vals == key).sum())
         got = np.asarray(bitvector.to_bool(bits, n))
         np.testing.assert_array_equal(got, vals == key)
@@ -43,9 +43,9 @@ def test_zonemap_no_match_prunes_everything():
     rng = np.random.default_rng(2)
     vals = rng.integers(0, 200, size=n, dtype=np.uint32)  # domain gap
     dev = layout.pack_device(jnp.asarray(vals), width)
-    zmap = zonemap.build_zonemap(dev, zone_b1=8, interpret=True)
+    zmap = zonemap.build_zonemap(dev, zone_b1=8)
     assert zonemap.prune_span(zmap, 300, 400) is None
-    bits, cnt = zonemap.pruned_range_scan(dev, zmap, 300, 400, interpret=True)
+    bits, cnt = zonemap.pruned_range_scan(dev, zmap, 300, 400)
     assert int(cnt) == 0
     assert np.asarray(bits).sum() == 0
 
@@ -55,7 +55,7 @@ def test_zonemap_unsorted_is_sound():
     rng = np.random.default_rng(3)
     vals = rng.integers(0, 1 << width, size=n, dtype=np.uint32)
     dev = layout.pack_device(jnp.asarray(vals), width)
-    zmap = zonemap.build_zonemap(dev, zone_b1=8, interpret=True)
+    zmap = zonemap.build_zonemap(dev, zone_b1=8)
     _check(vals, dev, zmap, 37, 38)   # spans ~everything -> fallback
     _check(vals, dev, zmap, 5, 200)
 
@@ -66,7 +66,7 @@ def test_zonemap_clustered_span_is_small():
     base = (np.arange(n, dtype=np.uint32) * 512) // n
     vals = base  # strictly clustered
     dev = layout.pack_device(jnp.asarray(vals), width)
-    zmap = zonemap.build_zonemap(dev, zone_b1=8, interpret=True)
+    zmap = zonemap.build_zonemap(dev, zone_b1=8)
     sp = zonemap.prune_span(zmap, 100, 102)
     assert sp is not None
     start, span = sp
@@ -80,10 +80,10 @@ def test_zonemap_padding_zone_prunes():
     width, n = 9, 200
     vals = np.full(n, 37, np.uint32)
     dev = layout.pack_device(jnp.asarray(vals), width)
-    zmap = zonemap.build_zonemap(dev, zone_b1=8, interpret=True)
+    zmap = zonemap.build_zonemap(dev, zone_b1=8)
     assert zmap.zmax[1:].max(initial=0) == 0  # only zone 0 holds data
     _check(vals, dev, zmap, 37, 38)
-    bits, cnt = zonemap.pruned_eq_scan(dev, zmap, 36, interpret=True)
+    bits, cnt = zonemap.pruned_eq_scan(dev, zmap, 36)
     assert int(cnt) == 0
 
 
@@ -92,7 +92,7 @@ def test_zonemap_rejects_bad_zone_size():
     vals = np.zeros(n, np.uint32)
     dev = layout.pack_device(jnp.asarray(vals), width)
     with pytest.raises(ValueError, match="zone_b1"):
-        zonemap.build_zonemap(dev, zone_b1=7, interpret=True)
+        zonemap.build_zonemap(dev, zone_b1=7)
 
 
 def test_query_planner_uses_zonemaps():
@@ -106,10 +106,10 @@ def test_query_planner_uses_zonemaps():
     b_vals = rng.integers(0, 1 << width, size=n, dtype=np.uint32)
     a = layout.pack_device(jnp.asarray(a_vals), width)
     b = layout.pack_device(jnp.asarray(b_vals), width)
-    zmaps = {id(a): zonemap.build_zonemap(a, zone_b1=8, interpret=True)}
+    zmaps = {id(a): zonemap.build_zonemap(a, zone_b1=8)}
 
     expr = q.And(q.Range(a, 100, 120), q.Not(q.Eq(b, 7)))
-    bits, cnt = q.evaluate(expr, interpret=True, zonemaps=zmaps)
+    bits, cnt = q.evaluate(expr, zonemaps=zmaps)
     mask = (a_vals >= 100) & (a_vals < 120) & (b_vals != 7)
     assert int(cnt) == int(mask.sum())
     np.testing.assert_array_equal(
@@ -117,7 +117,7 @@ def test_query_planner_uses_zonemaps():
     )
 
     expr2 = q.Or(q.Eq(a, 3), q.Range(b, 500, 512))
-    bits2, cnt2 = q.evaluate(expr2, interpret=True, zonemaps=zmaps)
+    bits2, cnt2 = q.evaluate(expr2, zonemaps=zmaps)
     mask2 = (a_vals == 3) | (b_vals >= 500)
     assert int(cnt2) == int(mask2.sum())
     np.testing.assert_array_equal(
@@ -125,7 +125,7 @@ def test_query_planner_uses_zonemaps():
     )
 
     # identical results without the zonemap (the pruning is transparent)
-    bits3, cnt3 = q.evaluate(expr, interpret=True)
+    bits3, cnt3 = q.evaluate(expr)
     assert int(cnt3) == int(cnt)
     np.testing.assert_array_equal(np.asarray(bits3), np.asarray(bits))
 
@@ -136,7 +136,7 @@ def test_zonemap_from_values_matches_device_build(n):
     rng = np.random.default_rng(n)
     vals = rng.integers(1, 1 << width, size=n, dtype=np.uint32)
     dev = layout.pack_device(jnp.asarray(vals), width)
-    zdev = zonemap.build_zonemap(dev, zone_b1=8, interpret=True)
+    zdev = zonemap.build_zonemap(dev, zone_b1=8)
     zval = zonemap.build_zonemap_from_values(vals, dev.tiles.shape[1],
                                              zone_b1=8)
     np.testing.assert_array_equal(zdev.zmin, zval.zmin)
@@ -144,8 +144,8 @@ def test_zonemap_from_values_matches_device_build(n):
     assert zdev.zone_b1 == zval.zone_b1 and zdev.b1 == zval.b1
 
 
-def _zcheck(vals, dev, zmap, lo, hi, tb=None):
-    bits, cnt = zonemap.zoned_range_scan(dev, zmap, lo, hi, tb=tb, interpret=True)
+def _zcheck(vals, dev, zmap, lo, hi):
+    bits, cnt = zonemap.zoned_range_scan(dev, zmap, lo, hi)
     mask = (vals >= lo) & (vals < hi)
     assert int(cnt) == int(mask.sum()), (lo, hi)
     got = np.asarray(bitvector.to_bool(bits, dev.n))
@@ -154,23 +154,23 @@ def _zcheck(vals, dev, zmap, lo, hi, tb=None):
 
 def test_zoned_scan_clustered_unsorted():
     # matching values clustered at BOTH file ends: prune_span degrades to
-    # a (near-)full span, the gather grid keeps per-block skipping
+    # a (near-)full span, the gathered scan keeps per-zone skipping
     width, n = 9, 9 * 8 * 128 * 32  # b1 = 72 rows worth at w=9... n values
     rng = np.random.default_rng(5)
     vals = rng.integers(100, 200, size=n, dtype=np.uint32)
     vals[: 4096 * 8] = 7          # first zone rows
     vals[-4096 * 8 :] = 7         # last zone rows
     dev = layout.pack_device(jnp.asarray(vals), width)
-    zmap = zonemap.build_zonemap(dev, zone_b1=8, interpret=True)
+    zmap = zonemap.build_zonemap(dev, zone_b1=8)
     # the single-span pruner must cover ~the whole column here
     s, span = zonemap.prune_span(zmap, 7, 8)
     assert span >= zmap.b1 // 2
-    # the gather grid sees only the two end clusters
+    # the gathered scan sees only the two end clusters
     live = zonemap.zone_step_mask(zmap, 7, 8, 8)
     assert live[0] and live[-1] and not live[1:-1].any()
-    _zcheck(vals, dev, zmap, 7, 8, tb=8)
-    _zcheck(vals, dev, zmap, 150, 160, tb=8)   # dense -> fallback path
-    _zcheck(vals, dev, zmap, 300, 400, tb=8)   # nothing matches
+    _zcheck(vals, dev, zmap, 7, 8)
+    _zcheck(vals, dev, zmap, 150, 160)   # dense -> fallback path
+    _zcheck(vals, dev, zmap, 300, 400)   # nothing matches
 
 
 def test_zoned_scan_ragged_tail_and_padding():
@@ -179,12 +179,12 @@ def test_zoned_scan_ragged_tail_and_padding():
     vals = rng.integers(0, 1 << width, size=n, dtype=np.uint32)
     vals[n - 10 :] = 3
     dev = layout.pack_device(jnp.asarray(vals), width)
-    zmap = zonemap.build_zonemap(dev, zone_b1=8, interpret=True)
-    _zcheck(vals, dev, zmap, 3, 4, tb=8)
+    zmap = zonemap.build_zonemap(dev, zone_b1=8)
+    _zcheck(vals, dev, zmap, 3, 4)
 
 
 def test_zoned_scan_padded_grid_steps_do_not_double_count():
-    # 3 live steps -> g=4: the padded step revisits a live tile; counts
+    # 3 live zones -> g=4: the padded entry revisits a live tile; counts
     # must not change
     width, n = 9, 9 * 8 * 128 * 32
     rng = np.random.default_rng(7)
@@ -192,7 +192,7 @@ def test_zoned_scan_padded_grid_steps_do_not_double_count():
     for z in (0, 16, 64):  # three separated zones of key 9 (block rows)
         vals[z * 4096 : (z + 8) * 4096] = 9
     dev = layout.pack_device(jnp.asarray(vals), width)
-    zmap = zonemap.build_zonemap(dev, zone_b1=8, interpret=True)
+    zmap = zonemap.build_zonemap(dev, zone_b1=8)
     live = zonemap.zone_step_mask(zmap, 9, 10, 8)
     assert int(live.sum()) == 3
-    _zcheck(vals, dev, zmap, 9, 10, tb=8)
+    _zcheck(vals, dev, zmap, 9, 10)
